@@ -5,26 +5,39 @@
 Phases, in order; any failure ends the script with a non-zero exit and no
 result line:
 
-1. device  — the card's name and power limit (nvidia-smi), the device count;
-             no card, no run.
-2. build   — every CUDA source of the port compiled with nvcc for sm_90a;
-             the ptxas report printed.
-3. kernels — each kernel against its plain PyTorch version on the card at
-             the shapes the serving path gives it (and a few edge shapes),
-             with the tolerance stated; kernel, plain and one-library-call
-             times from CUDA events; the least time the card could take.
-4. serving — the port's main path at full width: the base M3AE classifier
-             (Food-101, 101 classes, --gs_flag -dynamic, seeded weights) is
-             exported with export_serving (ladder 1/8/64, float32 weights),
-             loaded with load_serving (bf16 compute) and answers requests
-             through run_batch (n = 1, 3, 64) and concurrent HTTP /predict
-             with coalescing. Every launch counter is set to 0 just before
-             and read just after; each dispatch must launch the attention
-             kernel 24 times (12 blocks x 2 encoders). Logits are checked
-             finite and held against the same artifact run on the CPU in
-             float32 (plain attention there). After the counted run, one
-             request at n=1 and one at n=64 run under torch.profiler:
-             device time by kernel and the device's busy share.
+1. device   — the card's name and power limit (nvidia-smi), the device count;
+              no card, no run.
+2. build    — every CUDA source of the port compiled with nvcc for sm_90a,
+              one nvcc per source, all started together; the ptxas reports
+              printed.
+3. kernels  — each kernel against its plain PyTorch version on the card at
+              the shapes the serving and training paths give it (and a few
+              edge shapes), with the tolerance stated; kernel, plain and
+              library times from CUDA events; the least time the card could
+              take.
+4. serving  — the port's serving path at full width: the base M3AE
+              classifier (Food-101, 101 classes, --gs_flag -dynamic, seeded
+              weights) is exported with export_serving (ladder 1/8/64,
+              float32 weights), loaded with load_serving (bf16 compute) and
+              answers requests through run_batch (n = 1, 3, 64) and
+              concurrent HTTP /predict with coalescing. Every launch counter
+              is set to 0 just before and read just after; each dispatch
+              must launch the attention kernel 24 times (12 blocks x 2
+              encoders). Logits are checked finite and held against the same
+              artifact run on the CPU in float32 (plain attention there).
+              One request at n=1 and one at n=64 then run under
+              torch.profiler: device time by kernel and the busy share.
+5. training — the port's training path at full width: the same classifier
+              (seeded, float32 master weights, bf16 compute) takes 2 warm-up
+              and 5 timed MLA steps at B=64 through create_train_state /
+              make_spec / make_train_step; every counter is set to 0 just
+              before and read just after, and each step must launch the
+              forward and the backward kernel 24 times each (12 blocks x 2
+              sub-steps). Then one eval batch through make_eval_step, one
+              joint step and one QMF step at a small batch, every loss and
+              parameter checked finite. Then one profiled MLA step, and one
+              MLA step at B=2 in float32 on the card against the same step
+              on the CPU (plain versions there) from the same weights.
 
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -41,6 +54,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -57,6 +71,11 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense tensor cores
 # bf16: the probabilities round to bf16 at another point of the online
 # softmax, and outputs round to bf16 (1 ulp = 2^-7 relative)
 TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (2e-2, 1e-2)}
+# the backward's: bf16 as the forward's (a ds near a rounding boundary may
+# round the other way, moving its products by about one bf16 ulp); fp32
+# gains rtol 1e-5 because its gradients reach |x| ~ 10, where 1e-5 is a few
+# fp32 ulps of sums over 257 keys taken in another order
+TOL_BWD = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1e-2)}
 
 
 def fail(msg: str):
@@ -93,13 +112,14 @@ def time_cuda(fn, reps: int) -> float:
 
 # ---------------------------------------------------------------- phase 2
 
-KERNEL_SOURCES = ("flat_attention",)
+KERNEL_SOURCES = ("flat_attention", "flat_attention_bwd")
 
 
 def phase_build():
     from mla_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    libs = [_build.build(name) for name in KERNEL_SOURCES]
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:   # nvcc each
+        libs = list(pool.map(_build.build, KERNEL_SOURCES))
     secs = time.perf_counter() - t0
     print(f"[build] {len(libs)} CUDA source(s) built in {secs:.1f} s")
     for lib in libs:
@@ -166,17 +186,83 @@ def attention_case(b, s, h, d, dtype, fully_masked_row=False, seed=0,
     return row
 
 
+def attention_bwd_case(b, s, h, d, dtype, fully_masked_row=False, seed=0,
+                       reps=10):
+    from mla_tpu_torch.ops.attention import (flash_attention_flat,
+                                             flash_attention_flat_bwd,
+                                             flat_attention_bwd_reference)
+    rng = np.random.default_rng(seed)
+    c = h * d
+    qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * c)).astype(
+        np.float32)).to("cuda", dtype)
+    do = torch.from_numpy(rng.standard_normal((b, s, c)).astype(
+        np.float32)).to("cuda", dtype)
+    mask_np = text_mask(rng, b, s)
+    if fully_masked_row:
+        mask_np[-1, :] = 1.0
+    mask = torch.from_numpy(mask_np).cuda()
+    got = flash_attention_flat_bwd(qkv, do, mask, h)
+    torch.cuda.synchronize()
+    want = flat_attention_bwd_reference(qkv, do, mask, h)
+    atol, rtol = TOL_BWD[dtype]
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    ok = bool(torch.all(diff <= atol + rtol * want.float().abs()))
+    if fully_masked_row:      # P = 1/S: dq = dk = 0, dv = mean of dO
+        dv = do[-1].float().mean(dim=0)
+        ok = ok and bool(torch.all(got[-1, :, :2 * c] == 0)) and bool(
+            torch.allclose(got[-1, :, 2 * c:].float(), dv.expand(s, c),
+                           atol=atol, rtol=rtol))
+    es = qkv.element_size()
+    # qkv and dO read once, the mask read once, d(qkv) written once
+    nbytes = 2 * b * s * 3 * c * es + b * s * c * es + b * s * 4
+    # recomputed scores, dp, dq, dk, dv: five (S, S, D) products per head
+    flops = 10 * b * h * s * s * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    # yardstick only: SDPA forward + backward through autograd on an
+    # equivalent additive mask; the port never calls it
+    q, k, v = (qkv[..., i * c:(i + 1) * c].view(b, s, h, d).transpose(1, 2)
+               .detach().requires_grad_() for i in range(3))
+    g = do.view(b, s, h, d).transpose(1, 2)
+    bias = (mask * -1e7).to(dtype)[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(q, k, v, attn_mask=bias), (q, k, v), g)
+
+    row = {"shape": [b, s, h, d], "dtype": str(dtype).replace("torch.", ""),
+           "fully_masked_row": fully_masked_row, "max_abs_err": err,
+           "atol": atol, "rtol": rtol, "ok": ok,
+           "ms": time_cuda(lambda: flash_attention_flat_bwd(qkv, do, mask, h),
+                           reps),
+           "plain_ms": time_cuda(
+               lambda: flat_attention_bwd_reference(qkv, do, mask, h), reps),
+           "fwd_ms": time_cuda(lambda: flash_attention_flat(qkv, mask, h),
+                               reps),
+           "library_fwd_bwd_ms": time_cuda(sdpa_fwd_bwd, reps),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    row["fwd_plus_bwd_ms"] = row["fwd_ms"] + row["ms"]
+    print("[kernel] flat_attention_bwd " + json.dumps(row), flush=True)
+    return row
+
+
 def phase_kernels():
-    rows = []
+    rows, bwd_rows = [], []
     for dtype in (torch.bfloat16, torch.float32):
-        for b in (1, 8, 64):                       # the serving rungs
-            rows.append(attention_case(b, 257, 12, 64, dtype, seed=b))
-        rows.append(attention_case(8, 257, 16, 80, dtype, seed=80))  # huge
-        rows.append(attention_case(2, 9, 4, 16, dtype, True, seed=9))
+        for case, out in ((attention_case, rows),
+                          (attention_bwd_case, bwd_rows)):
+            for b in (1, 8, 64):           # the serving rungs; 64 trains
+                out.append(case(b, 257, 12, 64, dtype, seed=b))
+            out.append(case(8, 257, 16, 80, dtype, seed=80))   # huge
+            out.append(case(2, 9, 4, 16, dtype, True, seed=9))
     bad = [r for r in rows if not r["ok"]]
     check(not bad, f"flat attention kernel disagrees with its plain "
                    f"version: {bad}")
-    return rows
+    bad = [r for r in bwd_rows if not r["ok"]]
+    check(not bad, f"flat attention backward kernel disagrees with its "
+                   f"plain version: {bad}")
+    return rows, bwd_rows
 
 
 # ---------------------------------------------------------------- phase 4
@@ -205,9 +291,9 @@ def check_logits(out, n, where):
         check(bool(np.isfinite(out[k]).all()), f"{where}: {k} not finite")
 
 
-def profile_request(srv, feats) -> dict:
-    """One request under torch.profiler: device time by kernel name and the
-    device's busy share of the request's wall time (the profiler's own
+def profile_call(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: device time by kernel name
+    and the device's busy share of the call's wall time (the profiler's own
     host overhead is inside that wall time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -216,7 +302,7 @@ def profile_request(srv, feats) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t = time.perf_counter()
-        srv(feats)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
@@ -318,7 +404,7 @@ def phase_serving(work: Path):
     print(f"[serve] HTTP: {stats}; main path: {dispatches} dispatches, "
           f"{launches} attention launches; peak "
           f"{peak / 2**30:.2f} GiB", flush=True)
-    profiles = {n: profile_request(srv, reqs[n]) for n in (1, 64)}
+    profiles = {n: profile_call(lambda n=n: srv(reqs[n])) for n in (1, 64)}
     for n, p in profiles.items():
         print(f"[trace] n={n}: wall {p['wall_ms']:.2f} ms, device busy "
               f"{p['device_ms']:.2f} ms ({100 * p['busy_share']:.1f}%); top: "
@@ -340,6 +426,212 @@ def phase_serving(work: Path):
             "profiles": profiles}
 
 
+# ---------------------------------------------------------------- phase 5
+
+TRAIN_BATCH, TRAIN_SIZE = 64, "base"      # the training path's shape
+
+def train_batch(rng, n, n_data=None, device="cuda"):
+    """A Food-101-shaped batch (256 text tokens, 256x256 images) with labels,
+    all rows valid, and for QMF the rows' dataset indices."""
+    rows = {**request(rng, n), "label": rng.integers(0, 101, n),
+            "valid": np.ones(n, np.float32)}
+    if n_data is not None:
+        rows["idx"] = rng.permutation(n_data)[:n]
+    return {k: torch.from_numpy(np.asarray(v)).to(device)
+            for k, v in rows.items()}
+
+
+def mla_step_flops(b, c, depth, s=257, n_classes=101):
+    """Model FLOPs of one MLA step, from the shapes: each sub-step runs one
+    encoder forward and backward (3x the forward). Per block 24·N·C² of
+    GEMMs (qkv 3C, proj C, fc1 4C, fc2 4C; N = B·S) and 4·B·S²·C of
+    attention; the image encoder adds its patch projection, each sub-step
+    the shared head."""
+    def encoder(extra):
+        return (depth * (24 * b * s * c * c + 4 * b * s * s * c) + extra
+                + 2 * b * c * n_classes)
+    return 3 * (encoder(0) + encoder(2 * b * (s - 1) * 768 * c))
+
+
+def all_finite(tensors) -> bool:
+    return all(bool(torch.isfinite(t).all()) for t in tensors)
+
+
+def launch_counts():
+    from mla_tpu_torch.ops.attention import (flash_attention_flat,
+                                             flash_attention_flat_bwd)
+    return flash_attention_flat.launches, flash_attention_flat_bwd.launches
+
+
+def phase_training():
+    from mla_tpu_torch.core.config import MLAConfig
+    from mla_tpu_torch.evals.metrics import make_eval_step, summarize_counts
+    from mla_tpu_torch.models.classifiers import build_classifier
+    from mla_tpu_torch.ops.attention import (flash_attention_flat,
+                                             flash_attention_flat_bwd)
+    from mla_tpu_torch.train import optim
+    from mla_tpu_torch.train.state import create_train_state
+    from mla_tpu_torch.train.steps import make_train_step
+
+    b, n_steps, n_warm = TRAIN_BATCH, 7, 2
+    cfg = MLAConfig(dataset="Food101", lorb="m3ae", gs_flag=True,
+                    m3ae_size=TRAIN_SIZE, batch_size=b).validate()
+    t0 = time.perf_counter()
+    model = build_classifier(cfg, seed=0)
+    width, depth = model.mae_a.config.emb_dim, model.mae_a.config.depth
+    per_pass = 2 * depth        # 2 encoders, or 2 sub-steps of one each
+    spec = optim.make_spec(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    state = create_train_state(model, cfg, spec, seed=0)    # the card
+    check(all(p.is_cuda and p.dtype == torch.float32
+              for p in state.params.values())
+          and model.mae_a.compute_dtype == torch.bfloat16,
+          "train state not float32 weights with bf16 compute on the card")
+    rng = np.random.default_rng(1)
+    batches = [train_batch(rng, b) for _ in range(n_steps)]
+    eval_batch = train_batch(rng, b)
+    step = make_train_step(model, cfg, spec, len_dl=n_steps)
+    lr = optim.lr_for_epoch(cfg, 0)
+    print(f"[train] built the base classifier and its train state in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    others = {}
+    for name, kw in (("joint", {}), ("qmf", {"modulation": "QMF"})):
+        c = MLAConfig(dataset="Food101", lorb="m3ae", m3ae_size=TRAIN_SIZE,
+                      batch_size=8, **kw).validate()
+        m = build_classifier(c, seed=0)
+        s = optim.make_spec(c)
+        others[name] = (m, c, s, create_train_state(m, c, s, n_data=64,
+                                                    seed=0),
+                        train_batch(rng, 8, n_data=64))
+
+    # -- the main path: counters 0 just before, read just after ----------
+    flash_attention_flat.launches = 0
+    flash_attention_flat_bwd.launches = 0
+    times, losses = [], []
+    for i, batch in enumerate(batches):
+        f0, b0 = launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step(state, batch, lr, i)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        f1, b1 = launch_counts()
+        check(f1 - f0 == per_pass and b1 - b0 == per_pass,
+              f"MLA step {i}: {f1 - f0} forward / {b1 - b0} backward kernel "
+              f"launches, expected {per_pass} each")
+        if i >= n_warm:
+            times.append(dt)
+        losses.append({k: float(v) for k, v in metrics.items()})
+    f0, b0 = launch_counts()
+    counts = make_eval_step(model, cfg)(eval_batch)
+    f1, b1 = launch_counts()
+    check(f1 - f0 == per_pass and b1 == b0,
+          f"eval: {f1 - f0} forward / {b1 - b0} backward launches")
+    check(float(counts["num"].sum()) == b, f"eval counts {counts['num']}")
+    accuracy = summarize_counts(counts)
+    other_losses = {}
+    for name, (m, c, s, st, bt) in others.items():
+        f0, b0 = launch_counts()
+        st, met = make_train_step(m, c, s, len_dl=1)(st, bt, lr, 0)
+        torch.cuda.synchronize()
+        f1, b1 = launch_counts()
+        check(f1 - f0 == per_pass and b1 - b0 == per_pass,
+              f"{name} step: {f1 - f0} forward / {b1 - b0} backward launches")
+        other_losses[name] = {k: float(v) for k, v in met.items()}
+        check(all(np.isfinite(v) for v in other_losses[name].values())
+              and all_finite(st.params.values()),
+              f"{name} step: non-finite loss or parameter")
+    launches = launch_counts()
+    # -- end of the main path ---------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    del others
+    check(all(np.isfinite(v) for ls in losses for v in ls.values()),
+          f"non-finite MLA loss: {losses}")
+    check(all_finite(state.params.values()), "non-finite parameter")
+    med = float(np.median(times)) * 1e3
+    flops = mla_step_flops(b, width, depth)
+    share = flops / (med * 1e-3) / PEAK_FLOPS[torch.bfloat16]
+    print(f"[train] model FLOPs per MLA step at B={b}: {flops / 1e12:.2f} "
+          f"TFLOP; at the median step {share * 100:.2f}% of the bf16 peak",
+          flush=True)
+    print(f"[train] MLA B={b}: median {med:.2f} ms of {len(times)} steps "
+          f"(min {min(times) * 1e3:.2f}), {b / med * 1e3:.1f} clips/s; peak "
+          f"{peak / 2**30:.2f} GiB; losses {losses[0]['loss']:.4f} -> "
+          f"{losses[-1]['loss']:.4f}; launches fwd/bwd {launches}; eval "
+          f"{accuracy}; joint/QMF {other_losses}", flush=True)
+    profile = profile_call(lambda: step(state, batches[0], lr, 0))
+    print(f"[trace] MLA step B={b}: wall {profile['wall_ms']:.2f} ms, device "
+          f"busy {profile['device_ms']:.2f} ms "
+          f"({100 * profile['busy_share']:.1f}%); top: "
+          + json.dumps(profile["top"][:8]), flush=True)
+    del state, model, step, batches
+    torch.cuda.empty_cache()
+    return {"batch": b, "step_ms": [t * 1e3 for t in times],
+            "median_step_ms": med, "clips_per_s": b / med * 1e3,
+            "peak_bytes": peak, "model_flops": flops,
+            "bf16_peak_share": share, "losses": losses, "eval": accuracy,
+            "other_losses": other_losses, "launches_fwd": launches[0],
+            "launches_bwd": launches[1], "profile": profile,
+            "cpu_agreement": cpu_agreement()}
+
+
+def cpu_agreement():
+    """One MLA step at B=2, full base width, float32: on the card with the
+    kernels against the CPU with the plain versions, from the same weights
+    and batch. Relative L2 over all parameters and momentum buffers."""
+    from mla_tpu_torch.core.config import MLAConfig
+    from mla_tpu_torch.models.classifiers import build_classifier
+    from mla_tpu_torch.train import optim
+    from mla_tpu_torch.train.state import create_train_state
+    from mla_tpu_torch.train.steps import make_train_step
+
+    cfg = MLAConfig(dataset="Food101", lorb="m3ae", gs_flag=True,
+                    m3ae_size=TRAIN_SIZE, batch_size=2,
+                    compute_dtype="float32").validate()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = build_classifier(cfg, seed=1)
+        spec = optim.make_spec(cfg)
+        st = create_train_state(model, cfg, spec, seed=1, device=dev)
+        batch = train_batch(np.random.default_rng(7), 2, device=dev)
+        f0, b0 = launch_counts()
+        t = time.perf_counter()
+        st, met = make_train_step(model, cfg, spec, len_dl=1)(
+            st, batch, optim.lr_for_epoch(cfg, 0), 0)
+        met = {k: float(v) for k, v in met.items()}
+        f1, b1 = launch_counts()
+        n = 2 * model.mae_a.config.depth
+        check((f1 - f0, b1 - b0) == ((n, n) if dev == "cuda" else (0, 0)),
+              f"fp32 step on {dev}: {f1 - f0} / {b1 - b0} kernel launches")
+        out[dev] = ({n: p.detach().cpu() for n, p in st.params.items()},
+                    {n: m.cpu() for n, m in
+                     st.opt_state["momentum"].items()},
+                    met, time.perf_counter() - t)
+        del model, st
+    torch.cuda.empty_cache()
+
+    def rel_l2(a, ref):
+        num = sum(float(torch.sum((a[n] - ref[n]) ** 2)) for n in ref)
+        return (num / sum(float(torch.sum(ref[n] ** 2)) for n in ref)) ** 0.5
+
+    (pg, mg, lg, tg), (pc, mc, lc, tc) = out["cuda"], out["cpu"]
+    # (a leaf the step never reached with a zero weight has no momentum)
+    worst = max((float(torch.linalg.norm(mg[n] - mc[n])
+                       / torch.linalg.norm(mc[n])), n)
+                for n in mc if bool(torch.any(mc[n] != 0)))
+    res = {"params_rel_l2": rel_l2(pg, pc), "momentum_rel_l2": rel_l2(mg, mc),
+           "momentum_worst_param": {"name": worst[1], "rel_l2": worst[0]},
+           "loss_rel": {k: abs(lg[k] - lc[k]) / abs(lc[k]) for k in lc},
+           "losses_card": lg, "losses_cpu": lc, "step_s_card": tg,
+           "step_s_cpu": tc}
+    print(f"[train] fp32 MLA step B=2, card vs CPU: {json.dumps(res)}",
+          flush=True)
+    check(res["params_rel_l2"] <= 1e-6 and res["momentum_rel_l2"] <= 1e-3
+          and max(res["loss_rel"].values()) <= 1e-4,
+          f"the card's fp32 step drifts from the CPU's: {res}")
+    return res
+
+
 # ---------------------------------------------------------------- main
 
 def main():
@@ -353,32 +645,52 @@ def main():
           f"{kind} x{count}", flush=True)
     t_start = time.perf_counter()
     build_s = phase_build()
-    rows = phase_kernels()
+    rows, bwd_rows = phase_kernels()
     (ROOT / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "build"))
     try:
         serving = phase_serving(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    main_case = next(r for r in rows if r["shape"] == [64, 257, 12, 64]
-                     and r["dtype"] == "bfloat16")
-    kernels = [{"name": "flat_attention_fwd", "route": "cuda",
+    training = phase_training()
+
+    def main_shape(rs):
+        return next(r for r in rs if r["shape"] == [64, 257, 12, 64]
+                    and r["dtype"] == "bfloat16")
+
+    fwd, bwd = main_shape(rows), main_shape(bwd_rows)
+    common = {"route": "cuda", "at": "B=64 S=257 H=12 D=64 bf16"}
+    kernels = [{"name": "flat_attention_fwd", **common,
                 "source": "mla_tpu_torch/ops/csrc/flat_attention.cu",
                 "replaces": "mla_tpu/ops/attention.py:322",
-                "launches": serving["launches"],
-                "max_abs_err": main_case["max_abs_err"],
-                "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-                "bound_ms": main_case["bound_ms"],
-                "bound_by": main_case["bound_by"],
-                "library_ms": main_case["library_ms"],
-                "at": "B=64 S=257 H=12 D=64 bf16",
+                # serving dispatches + training steps, eval, joint, QMF
+                "launches": serving["launches"] + training["launches_fwd"],
+                "max_abs_err": fwd["max_abs_err"],
+                "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
+                "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
+                "library_ms": fwd["library_ms"],
                 # over every case of phase 3 (both dtypes, D=80, S=9)
                 "max_abs_err_all": max(r["max_abs_err"] for r in rows),
-                "all_ok": all(r["ok"] for r in rows)}]
+                "all_ok": all(r["ok"] for r in rows)},
+               {"name": "flat_attention_bwd", **common,
+                "source": "mla_tpu_torch/ops/csrc/flat_attention_bwd.cu",
+                "replaces": "mla_tpu/ops/attention.py:386",
+                "launches": training["launches_bwd"],
+                "max_abs_err": bwd["max_abs_err"],
+                "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
+                "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
+                # no one library call computes the backward alone; SDPA
+                # forward + backward is set beside B1f + B1b instead
+                "library_ms": None,
+                "library_fwd_bwd_ms": bwd["library_fwd_bwd_ms"],
+                "fwd_plus_bwd_ms": bwd["fwd_plus_bwd_ms"],
+                "max_abs_err_all": max(r["max_abs_err"] for r in bwd_rows),
+                "all_ok": all(r["ok"] for r in bwd_rows)}]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
         "device": smi, "torch": torch.__version__, "build_s": build_s,
-        "kernel_cases": rows, "serving": serving,
+        "kernel_cases": rows, "bwd_kernel_cases": bwd_rows,
+        "serving": serving, "training": training,
         "seconds": time.perf_counter() - t_start}, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))

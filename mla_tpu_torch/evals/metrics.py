@@ -1,18 +1,20 @@
-"""Per-class accuracy and the inference forward (port of
+"""Per-class accuracy, the inference forward and the eval step (port of
 ``mla_tpu/evals/metrics.py``).
 
-Ported: the gs_flag (MLA) branch of ``eval_logits``, fixed-alpha and
-``--dynamic``; ``top1_accuracy``; ``per_class_counts``. The QMF and joint
-branches need the training slice's energy confidence and sliced modality
-logits (ROADMAP queue A, item 2) and raise until then.
+Replaces the reference's per-sample argmax loop (main.py:659-676) with one
+scatter-add per batch on the device; the caller only pulls (n_classes,)
+count vectors.
 """
 
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 
 from mla_tpu_torch.evals.fusion_eval import fuse_outputs
 from mla_tpu_torch.models.classifiers import modalities_of
+from mla_tpu_torch.train.steps import _energy_conf, sliced_modality_logits
 
 
 def top1_accuracy(logits, label, valid=None):
@@ -39,10 +41,53 @@ def eval_logits(model, cfg, batch, valid):
     (B, n_classes)) with the regime's eval-time fusion (valid() fusion
     branches, main.py:617-651). ``valid`` (B,) masks padded rows out of the
     batch-axis gating."""
-    if not cfg.gs_flag:
-        raise NotImplementedError(
-            "the QMF and joint eval fusion branches come with the training "
-            "slice (ROADMAP queue A, item 2); the port serves --gs_flag")
+    modalities = modalities_of(cfg)
     out = model(batch)
-    out_m = {m: out[f"out_{m}"] for m in modalities_of(cfg)}
-    return out_m, fuse_outputs(out_m, valid, cfg)
+    if cfg.gs_flag:
+        out_m = {m: out[f"out_{m}"] for m in modalities}
+        return out_m, fuse_outputs(out_m, valid, cfg)
+    if cfg.modulation == "QMF" and cfg.lorb != "large":
+        # lorb=large has no QMF heads and the reference's branch order makes
+        # QMF inert for it (main.py:166-170): it takes the joint branch
+        out_m = {m: out[m] for m in modalities}
+        fused = sum(out_m[m] * _energy_conf(out_m[m])[:, None]
+                    for m in modalities)
+        return out_m, fused
+    out_m = sliced_modality_logits(
+        {m: out[m] for m in modalities}, model.fusion_module,
+        cfg.fusion_method, cfg.modal3, bias_div=True)
+    return out_m, out["out"]
+
+
+def make_eval_step(model, cfg):
+    """Returns step(batch) -> dict of (n_classes,) counts
+    {'num','acc','acc_a','acc_v'[,'acc_t']} for the caller to accumulate
+    (valid() semantics, main.py:486-679). ``batch`` holds the model's inputs,
+    ``label`` and ``valid``; the model (with its weights) runs under
+    ``torch.inference_mode``."""
+    modalities = modalities_of(cfg)
+    n_classes = cfg.n_classes
+
+    def step(batch):
+        with torch.inference_mode():
+            valid, label = batch["valid"], batch["label"].long()
+            out_m, fused = eval_logits(model, cfg, batch, valid)
+            counts = {
+                "num": torch.zeros(n_classes, dtype=valid.dtype,
+                                   device=valid.device).index_add_(
+                                       0, label, valid),
+                "acc": per_class_counts(fused, label, valid, n_classes),
+            }
+            for m in modalities:
+                counts[f"acc_{m}"] = per_class_counts(out_m[m], label, valid,
+                                                      n_classes)
+            return counts
+
+    return step
+
+
+def summarize_counts(totals: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """sum(acc)/sum(num) per head (main.py:677-679)."""
+    num = float(torch.sum(totals["num"]))
+    return {k: float(torch.sum(v)) / max(num, 1.0)
+            for k, v in totals.items() if k != "num"}

@@ -10,7 +10,11 @@ Each classifier exposes the JAX package's interface:
                              'a' is TEXT)
   head(feat)              -> shared-head logits (MLA/gs path)
   forward(batch)          -> {'a','v','out_a','out_v'} under gs_flag,
+                             {'a','v'} per-modality logits under QMF,
                              {'a','v','out'} for joint fusion
+  set_compute_dtype(dt)   -> run the encoders and heads in ``dt`` whatever
+                             the weights' type (training: fp32 weights, bf16
+                             compute); None = the weights' type
 
 ``batch`` holds token (B, L) int, padding_mask (B, L) float (1 = padded) and
 image (B, 3, H, W) float.
@@ -23,6 +27,7 @@ from torch import nn
 
 from mla_tpu_torch.core.config import MLAConfig
 from mla_tpu_torch.models import fusion as fusion_lib
+from mla_tpu_torch.models.layers import linear
 from mla_tpu_torch.models.m3ae import M3AEConfig, M3AEEncoder
 from mla_tpu_torch.ops.image import patchify
 
@@ -49,20 +54,38 @@ class M3AEClassifier(nn.Module):
     """
 
     def __init__(self, n_classes: int = 101, fusion_method: str = "concat",
-                 gs_flag: bool = False,
+                 gs_flag: bool = False, qmf: bool = False,
                  model_type: str = "base", text_vocab_size: int = 30522):
         super().__init__()
         self.gs_flag = gs_flag
+        self.qmf = qmf
         cfg = M3AEConfig(model_type=model_type, text_vocab_size=text_vocab_size)
         self.mae_a = M3AEEncoder(cfg)
         self.mae_v = M3AEEncoder(cfg)
-        self.fusion_module = _make_fusion(fusion_method, gs_flag, n_classes, 2,
-                                          cfg.emb_dim)
+        if qmf:
+            # per-modality QMF heads (the JAX package's _qmf_head with torch
+            # nn.Linear's default init, classifiers.py:227-232). The QMF
+            # forward never reaches the fusion head, so the JAX package's
+            # parameters have none, and neither do the port's.
+            self.audio_fc = nn.Linear(cfg.emb_dim, n_classes)
+            self.visual_fc = nn.Linear(cfg.emb_dim, n_classes)
+        else:
+            self.fusion_module = _make_fusion(fusion_method, gs_flag,
+                                              n_classes, 2, cfg.emb_dim)
 
     def reset_parameters(self, gen: torch.Generator):
         self.mae_a.reset_parameters(gen)
         self.mae_v.reset_parameters(gen)
-        self.fusion_module.reset_parameters(gen)
+        if not self.qmf:
+            self.fusion_module.reset_parameters(gen)
+        else:
+            fusion_lib.reset_torch_default(self.audio_fc, gen)
+            fusion_lib.reset_torch_default(self.visual_fc, gen)
+
+    def set_compute_dtype(self, dtype):
+        self.mae_a.compute_dtype = dtype
+        self.mae_v.compute_dtype = dtype
+        return self
 
     def encode(self, batch, modality: str):
         if modality == "a":
@@ -80,6 +103,8 @@ class M3AEClassifier(nn.Module):
     def forward(self, batch):
         a = self.encode(batch, "a")
         v = self.encode(batch, "v")
+        if self.qmf:
+            return {"a": linear(self.audio_fc, a), "v": linear(self.visual_fc, v)}
         if self.gs_flag:
             return {"a": a, "v": v, "out_a": self.fusion_module(a),
                     "out_v": self.fusion_module(v)}
@@ -90,8 +115,10 @@ class M3AEClassifier(nn.Module):
 def classifier_kwargs(cfg: MLAConfig) -> dict:
     """Constructor arguments of the classifier ``cfg`` selects (main.py:706-718).
 
-    Only ``--lorb m3ae`` without ``--modal3`` is ported, without the QMF
-    heads; the rest raises with the ROADMAP item that brings it."""
+    Only ``--lorb m3ae`` without ``--modal3`` is ported; the rest raises
+    with the ROADMAP item that brings it. ``gs_flag`` takes precedence over
+    ``--modulation QMF``: the reference's gs branch never touches the QMF
+    heads (main.py:419-485, 617-639)."""
     if cfg.lorb == "m3ae" and cfg.modal3:
         raise NotImplementedError("--modal3 (CAV-MAE + 2x M3AE) is not ported "
                                   "yet: ROADMAP queue A, item 8")
@@ -104,11 +131,10 @@ def classifier_kwargs(cfg: MLAConfig) -> dict:
     if cfg.lorb == "base":
         raise NotImplementedError("--lorb base (ResNet-18) is not ported yet: "
                                   "ROADMAP queue A, item 3")
-    if cfg.regime == "qmf":
-        raise NotImplementedError("the QMF heads come with the training "
-                                  "slice: ROADMAP queue A, item 2")
     return dict(n_classes=cfg.n_classes, fusion_method=cfg.fusion_method,
-                gs_flag=cfg.gs_flag, model_type=cfg.m3ae_size)
+                gs_flag=cfg.gs_flag,
+                qmf=cfg.modulation == "QMF" and not cfg.gs_flag,
+                model_type=cfg.m3ae_size)
 
 
 def build_classifier(cfg: MLAConfig, seed: int = 0,

@@ -8,6 +8,13 @@ weight/bias; a ``--scan_blocks`` tree's stacked ``blocks`` -> per-block
 entries). ``load_reference_checkpoint`` reads a reference ``saved_dict``
 ``.pth`` (reference main.py:915-927, as written by ``main.py --export_torch``)
 and strips the DataParallel ``module.`` prefix.
+
+The train state crosses the same way: ``opt_state_from_jax`` maps the JAX
+optimizer state (SGD ``momentum``, Adam ``m``/``v``/``t``, trees shaped
+like the params) onto the port's parameter names with the same key mapping,
+and ``gs_state_from_jax`` / ``qmf_state_from_jax`` carry the GS projector
+and the QMF history. They read plain attributes and arrays, so the port
+needs none of the JAX package to take them.
 """
 
 from __future__ import annotations
@@ -16,6 +23,9 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from mla_tpu_torch.train.gs import GSState
+from mla_tpu_torch.train.state import QMFState
 
 
 def _t(x) -> torch.Tensor:
@@ -101,6 +111,42 @@ def state_dict_from_jax(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
         if fc in params.get("fusion_module", {}):
             _linear(sd, params["fusion_module"][fc], f"fusion_module.{fc}")
     return sd
+
+
+def _tree_f32(tree):
+    """Nested dicts of arrays (any float type, bf16 included) -> float32
+    numpy, the form ``state_dict_from_jax`` reads."""
+    if isinstance(tree, Mapping):
+        return {k: _tree_f32(v) for k, v in tree.items()}
+    return np.asarray(tree).astype(np.float32)
+
+
+def opt_state_from_jax(opt_state: Mapping, cfg) -> Dict[str, dict]:
+    """JAX optimizer state -> the port's (``train/optim.py``): moment trees
+    keyed by parameter name (kernels transposed), in their storage type
+    (``--opt_dtype``); Adam's per-leaf step counts as ints."""
+    dt = getattr(torch, cfg.opt_dtype)
+    out = {}
+    for key in ("momentum", "m", "v"):
+        if key in opt_state:
+            out[key] = {n: t.to(dt) for n, t in state_dict_from_jax(
+                _tree_f32(opt_state[key]), cfg).items()}
+    if "t" in opt_state:
+        out["t"] = {n: int(t) for n, t in state_dict_from_jax(
+            _tree_f32(opt_state["t"]), cfg).items()}
+    return out
+
+
+def gs_state_from_jax(gs):
+    """A JAX ``GSState`` (``Pl``, ``exp_count``) -> the port's."""
+    return GSState(Pl=_t(gs.Pl), exp_count=int(np.asarray(gs.exp_count)))
+
+
+def qmf_state_from_jax(qmf):
+    """A JAX ``QMFState`` (per-modality ``correctness`` and ``confidence``,
+    n_data + 1 slots) -> the port's."""
+    return QMFState(correctness={m: _t(v) for m, v in qmf.correctness.items()},
+                    confidence={m: _t(v) for m, v in qmf.confidence.items()})
 
 
 def load_reference_checkpoint(path: str) -> Dict[str, torch.Tensor]:

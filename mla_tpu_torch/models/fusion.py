@@ -4,7 +4,8 @@ models/fusion_modules.py:1-99.
 ConcatFusion's single ``fc_out`` Linear is the *shared head* MLA trains
 per-modality (feature-width input when gs_flag — basic_model.py:31-34).
 The M3AE family keeps torch nn.Linear's default init: weight and bias both
-U(+-1/sqrt(fan_in)), drawn here from an explicit generator.
+U(+-1/sqrt(fan_in)), drawn here from an explicit generator. Each head runs
+in its input's type, casting its parameters per op (``layers.linear``).
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import math
 
 import torch
 from torch import nn
+
+from mla_tpu_torch.models.layers import linear
 
 
 @torch.no_grad()
@@ -35,7 +38,7 @@ class SumFusion(nn.Module):
         reset_torch_default(self.fc_y, gen)
 
     def forward(self, x, y):
-        return x, y, self.fc_x(x) + self.fc_y(y)
+        return x, y, linear(self.fc_x, x) + linear(self.fc_y, y)
 
 
 class ConcatFusion(nn.Module):
@@ -47,7 +50,7 @@ class ConcatFusion(nn.Module):
         reset_torch_default(self.fc_out, gen)
 
     def forward(self, x, y):
-        return x, y, self.fc_out(torch.cat([x, y], dim=1))
+        return x, y, linear(self.fc_out, torch.cat([x, y], dim=1))
 
 
 class ConcatFusion3(nn.Module):
@@ -59,7 +62,7 @@ class ConcatFusion3(nn.Module):
         reset_torch_default(self.fc_out, gen)
 
     def forward(self, x, y, z):
-        return x, y, z, self.fc_out(torch.cat([x, y, z], dim=1))
+        return x, y, z, linear(self.fc_out, torch.cat([x, y, z], dim=1))
 
 
 class SharedHead(nn.Module):
@@ -74,4 +77,4 @@ class SharedHead(nn.Module):
         reset_torch_default(self.fc_out, gen)
 
     def forward(self, feat):
-        return self.fc_out(feat)
+        return linear(self.fc_out, feat)

@@ -10,6 +10,13 @@ loads with ``strict=True``.
 Weights are created uninitialised; ``reset_parameters(gen)`` fills them from
 an explicit ``torch.Generator`` (xavier-uniform linears, zero biases, unit
 LayerNorms — the JAX package's initialisers).
+
+Mixed precision follows the JAX package's flax modules, not ``autocast``:
+the blocks run in the type of their input (the encoder's compute type) and
+cast each parameter to it per op (``linear``); LayerNorm computes in fp32
+and returns the input's type (``layer_norm``). With fp32 master weights and
+bf16 compute the casts' backward hands fp32 gradients to the fp32 weights;
+with weights already in the compute type the casts do nothing.
 """
 
 from __future__ import annotations
@@ -22,6 +29,21 @@ import torch.nn.functional as F
 from torch import nn
 
 from mla_tpu_torch.ops.attention import fused_attention_qkv
+
+
+def linear(lin: nn.Linear, x):
+    """``lin`` in x's type: weight and bias cast per op (flax Dense with
+    ``dtype``, whose ``promote_dtype`` casts inputs and parameters)."""
+    dt = x.dtype
+    bias = None if lin.bias is None else lin.bias.to(dt)
+    return F.linear(x, lin.weight.to(dt), bias)
+
+
+def layer_norm(ln: nn.LayerNorm, x):
+    """``ln`` with fp32 statistics and affine, returned in x's type (flax
+    LayerNorm with ``dtype``)."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
+                        ln.bias.float(), ln.eps).to(x.dtype)
 
 
 @torch.no_grad()
@@ -61,8 +83,9 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x, padding_mask: Optional[torch.Tensor] = None):
         # the fused projection's (B, S, 3C) output feeds the flat kernel
         # directly; its (B, S, C) result is already in fc's layout
-        qkv = self.qkv_linear(x)
-        return self.fc(fused_attention_qkv(qkv, padding_mask, self.num_heads))
+        qkv = linear(self.qkv_linear, x)
+        return linear(self.fc, fused_attention_qkv(qkv, padding_mask,
+                                                   self.num_heads))
 
 
 class Mlp(nn.Module):
@@ -78,7 +101,8 @@ class Mlp(nn.Module):
         reset_xavier_linear(self.fc2, gen)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate="none"))
+        return linear(self.fc2, F.gelu(linear(self.fc1, x),
+                                       approximate="none"))
 
 
 class M3AEBlock(nn.Module):
@@ -98,5 +122,5 @@ class M3AEBlock(nn.Module):
         self.transformer_mlp.reset_parameters(gen)
 
     def forward(self, x, padding_mask=None):
-        x = x + self.attention(self.layer_norm1(x), padding_mask)
-        return x + self.transformer_mlp(self.layer_norm2(x))
+        x = x + self.attention(layer_norm(self.layer_norm1, x), padding_mask)
+        return x + self.transformer_mlp(layer_norm(self.layer_norm2, x))

@@ -13,8 +13,10 @@ embeddings use torch ``.normal_(0.02)`` which is mean=0.02, std=1.0
 (m3ae.py:322-330) — NOT std=0.02.
 
 Types follow the JAX module: the embeddings are summed in fp32 with the
-sin-cos tables and cast once to the weights' (compute) type; the blocks run
-in that type.
+sin-cos tables and cast once to the compute type; the blocks run in that
+type, casting each parameter per op (``layers.linear``). The compute type is
+``compute_dtype`` when set (training: fp32 master weights, bf16 compute),
+else the weights' type (serving casts the weights themselves).
 """
 
 from __future__ import annotations
@@ -26,8 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mla_tpu_torch.models.layers import (M3AEBlock, reset_layer_norm,
-                                         reset_xavier_linear)
+from mla_tpu_torch.models.layers import (M3AEBlock, layer_norm,
+                                         reset_layer_norm, reset_xavier_linear)
 from mla_tpu_torch.ops.pos_embed import (get_1d_sincos_pos_embed,
                                          get_2d_sincos_pos_embed_square)
 
@@ -91,6 +93,8 @@ class M3AEEncoder(nn.Module):
             self.encoder_text_type_embedding = nn.Parameter(
                 torch.empty(1, 1, c.emb_dim))
         self.encoder = _Transformer(c)
+        # None: the weights' type (see the module docstring)
+        self.compute_dtype: Optional[torch.dtype] = None
         # sin-cos tables by (kind, length, device): constants, not weights
         self._pos: Dict[Tuple[str, int, torch.device], torch.Tensor] = {}
 
@@ -135,12 +139,12 @@ class M3AEEncoder(nn.Module):
         assert image is not None or text is not None
         ref = image if image is not None else text
         batch, dev = ref.shape[0], ref.device
-        dt = self.cls_token.dtype
-        parts = [self.cls_token.expand(batch, 1, c.emb_dim)]
+        dt = self.compute_dtype or self.cls_token.dtype
+        parts = [self.cls_token.to(dt).expand(batch, 1, c.emb_dim)]
         masks = [torch.zeros((batch, 1), dtype=torch.float32, device=dev)]
         if image is not None:
-            w = self.image_embedding.weight
-            proj = F.linear(image.to(w.dtype), w) + self.image_embedding.bias
+            emb = self.image_embedding
+            proj = F.linear(image.to(dt), emb.weight.to(dt)) + emb.bias.to(dt)
             x = proj.float() + self._table("image", image.shape[1], dev)
             if c.use_type_embedding:
                 x = x + self.encoder_image_type_embedding.float()
@@ -160,4 +164,4 @@ class M3AEEncoder(nn.Module):
         return torch.cat(parts, dim=1), torch.cat(masks, dim=1)
 
     def finalize(self, x):
-        return self.encoder.layer_norm(x)
+        return layer_norm(self.encoder.layer_norm, x)

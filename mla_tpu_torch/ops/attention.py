@@ -5,10 +5,13 @@ by overwriting masked columns with -1e7 before the softmax (reference:
 models/m3ae.py:95-127). Mask semantics kept exactly: where mask > 0 the
 *scaled* score is replaced by -1e7 (not added), then softmax.
 
-On a CUDA tensor, attention on the fused qkv projection runs through the
-hand-written kernel ``csrc/flat_attention.cu`` (the port of the TPU kernel
-``_attn_kernel_flat``). On a CPU tensor it runs the plain version below. There
-is no fallback from one to the other.
+Attention on the fused qkv projection runs through ``FlatAttention``, the
+counterpart of the JAX package's ``_flat_mha`` custom VJP. On a CUDA tensor
+its forward is the hand-written kernel ``csrc/flat_attention.cu`` (the port of
+the TPU kernel ``_attn_kernel_flat``) and its backward is
+``csrc/flat_attention_bwd.cu`` (the port of ``_attn_bwd_kernel_flat``). On a
+CPU tensor both are the plain versions below. There is no fallback from one
+to the other.
 """
 
 from __future__ import annotations
@@ -52,16 +55,45 @@ def flat_attention_reference(qkv, padding_mask, num_heads: int):
     return out.permute(0, 2, 1, 3).reshape(b, s, c)
 
 
-def flash_attention_flat(qkv, padding_mask, num_heads: int):
-    """Launch the flat attention kernel on a CUDA tensor.
+def flat_attention_bwd_reference(qkv, do, padding_mask, num_heads: int):
+    """Plain version of the flat backward kernel: the VJP of
+    ``flat_attention_reference`` with the TPU kernel's arithmetic
+    (``_attn_bwd_kernel_flat``): scores, P, ``dp = do.v^T`` and
+    ``delta = sum(p * dp)`` in fp32; ``ds = p * (dp - delta)`` rounded to the
+    input type before the dq/dk products and P rounded to it before the dv
+    product; fp32 accumulation. ``ds`` is 0 at a masked key, as in the VJP of
+    the reference, whose mask replaces the score. qkv (B, S, 3C), do (B, S, C)
+    -> d(qkv) (B, S, 3C) in qkv's type, in the forward's column layout."""
+    b, s, c3 = qkv.shape
+    c = c3 // 3
+    d = c // num_heads
+    scale = d ** -0.5
+    dt = qkv.dtype
+    q, k, v = qkv.reshape(b, s, 3, num_heads, d).permute(2, 0, 3, 1, 4).float()
+    g = do.reshape(b, s, num_heads, d).permute(0, 2, 1, 3).float()
+    scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    masked = None
+    if padding_mask is not None:
+        masked = padding_mask[:, None, None, :] > 0
+        scores = torch.where(masked, torch.full_like(scores, _NEG), scores)
+    p = torch.softmax(scores, dim=-1)
+    dp = torch.einsum("bhqd,bhkd->bhqk", g, v)
+    delta = (p * dp).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    if masked is not None:
+        ds = torch.where(masked, torch.zeros_like(ds), ds)
+    ds = ds.to(dt).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dt).float(), g)
+    out = torch.stack([dq.to(dt), dk.to(dt), dv.to(dt)])   # (3, B, H, S, D)
+    return out.permute(1, 3, 0, 2, 4).reshape(b, s, c3)
 
-    qkv: (B, S, 3C) contiguous bf16 or fp32 on the card; padding_mask: (B, S),
-    1 = padded, or None. Returns (B, S, C). Raises on anything the kernel does
-    not take, and when the launch is refused. ``flash_attention_flat.launches``
-    counts the launches."""
+
+def _check_qkv(qkv, num_heads: int, who: str):
+    """The checks both kernel wrappers make on qkv -> (B, S, C, D)."""
     if qkv.device.type != "cuda":
-        raise ValueError(f"flash_attention_flat needs a CUDA tensor, got "
-                         f"{qkv.device}")
+        raise ValueError(f"{who} needs a CUDA tensor, got {qkv.device}")
     if qkv.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flat attention takes bf16 or fp32, got {qkv.dtype}")
     if qkv.dim() != 3 or qkv.shape[2] % (3 * num_heads):
@@ -76,15 +108,30 @@ def flash_attention_flat(qkv, padding_mask, num_heads: int):
         raise ValueError(f"batch {b} / sequence {s} out of the kernel's grid")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("qkv must be contiguous and 16-byte aligned")
+    return b, s, c, d
+
+
+def _kernel_mask(padding_mask, qkv, b: int, s: int):
+    """The (B, S) fp32 mask the kernels read, 1 = padded; zeros for None."""
     if padding_mask is None:
-        mask = torch.zeros((b, s), dtype=torch.float32, device=qkv.device)
-    else:
-        if tuple(padding_mask.shape) != (b, s):
-            raise ValueError(f"padding_mask {tuple(padding_mask.shape)} != "
-                             f"{(b, s)}")
-        if padding_mask.device != qkv.device:
-            raise ValueError("padding_mask must be on qkv's device")
-        mask = padding_mask.to(torch.float32).contiguous()
+        return torch.zeros((b, s), dtype=torch.float32, device=qkv.device)
+    if tuple(padding_mask.shape) != (b, s):
+        raise ValueError(f"padding_mask {tuple(padding_mask.shape)} != "
+                         f"{(b, s)}")
+    if padding_mask.device != qkv.device:
+        raise ValueError("padding_mask must be on qkv's device")
+    return padding_mask.to(torch.float32).contiguous()
+
+
+def flash_attention_flat(qkv, padding_mask, num_heads: int):
+    """Launch the flat attention kernel on a CUDA tensor.
+
+    qkv: (B, S, 3C) contiguous bf16 or fp32 on the card; padding_mask: (B, S),
+    1 = padded, or None. Returns (B, S, C). Raises on anything the kernel does
+    not take, and when the launch is refused. ``flash_attention_flat.launches``
+    counts the launches."""
+    b, s, c, d = _check_qkv(qkv, num_heads, "flash_attention_flat")
+    mask = _kernel_mask(padding_mask, qkv, b, s)
     out = torch.empty((b, s, c), dtype=qkv.dtype, device=qkv.device)
     lib = _flat_lib()
     with torch.cuda.device(qkv.device):
@@ -102,6 +149,46 @@ def flash_attention_flat(qkv, padding_mask, num_heads: int):
 flash_attention_flat.launches = 0
 
 
+def flash_attention_flat_bwd(qkv, do, padding_mask, num_heads: int):
+    """Launch the flat attention backward kernel on CUDA tensors.
+
+    qkv: (B, S, 3C) as the forward took it; do: (B, S, C), the gradient of the
+    forward's output, of qkv's type; padding_mask: (B, S), 1 = padded, or
+    None. Returns d(qkv) (B, S, 3C) in the forward's column layout (q at
+    column h*D, k at C + h*D, v at 2C + h*D). Raises on anything the kernel
+    does not take, and when a launch is refused.
+    ``flash_attention_flat_bwd.launches`` counts the launches."""
+    b, s, c, d = _check_qkv(qkv, num_heads, "flash_attention_flat_bwd")
+    if tuple(do.shape) != (b, s, c) or do.dtype != qkv.dtype or \
+            do.device != qkv.device:
+        raise ValueError(f"do must be {(b, s, c)} {qkv.dtype} on "
+                         f"{qkv.device}, got {tuple(do.shape)} {do.dtype} on "
+                         f"{do.device}")
+    if not do.is_contiguous() or do.data_ptr() % 16:
+        raise ValueError("do must be contiguous and 16-byte aligned")
+    mask = _kernel_mask(padding_mask, qkv, b, s)
+    dqkv = torch.empty_like(qkv)
+    # per (b, head, query): row max, row sum and delta = sum_j p_ij dp_ij,
+    # written by the first pass and read by the second
+    stats = torch.empty(3 * b * num_heads * s, dtype=torch.float32,
+                        device=qkv.device)
+    lib = _bwd_lib()
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        rc = lib.mla_flat_attention_bwd(
+            qkv.data_ptr(), do.data_ptr(), mask.data_ptr(), dqkv.data_ptr(),
+            stats.data_ptr(), b, s, num_heads, d,
+            int(qkv.dtype == torch.bfloat16), float(d ** -0.5), stream)
+    if rc != 0:
+        raise RuntimeError(f"flat attention backward kernel launch failed: "
+                           f"CUDA error {rc}")
+    flash_attention_flat_bwd.launches += 1
+    return dqkv
+
+
+flash_attention_flat_bwd.launches = 0
+
+
 def _flat_lib() -> ctypes.CDLL:
     lib = _build.load("flat_attention")
     fn = lib.mla_flat_attention_fwd
@@ -112,12 +199,48 @@ def _flat_lib() -> ctypes.CDLL:
     return lib
 
 
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flat_attention_bwd")
+    fn = lib.mla_flat_attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+class FlatAttention(torch.autograd.Function):
+    """Attention on the fused qkv projection with its own backward (the
+    counterpart of the JAX package's ``_flat_mha`` custom VJP). The forward
+    saves qkv and the mask; the backward recomputes P and returns d(qkv) as
+    one (B, S, 3C) tensor. CUDA tensors go to the kernels, CPU tensors to
+    the plain versions."""
+
+    @staticmethod
+    def forward(ctx, qkv, padding_mask, num_heads: int):
+        ctx.num_heads = num_heads
+        if ctx.needs_input_grad[0]:
+            ctx.save_for_backward(qkv, padding_mask)
+        if qkv.device.type == "cpu":
+            return flat_attention_reference(qkv, padding_mask, num_heads)
+        return flash_attention_flat(qkv, padding_mask, num_heads)
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, padding_mask = ctx.saved_tensors
+        if qkv.device.type == "cpu":
+            dqkv = flat_attention_bwd_reference(qkv, do, padding_mask,
+                                                ctx.num_heads)
+        else:
+            dqkv = flash_attention_flat_bwd(qkv, do.contiguous(),
+                                            padding_mask, ctx.num_heads)
+        return dqkv, None, None
+
+
 def fused_attention_qkv(qkv, padding_mask: Optional[torch.Tensor],
                         num_heads: int):
-    """Attention on the raw fused-qkv projection (B, S, 3C) -> (B, S, C).
-
-    A CUDA tensor goes to the hand-written kernel (or the kernel's wrapper
-    raises); a CPU tensor goes to the plain version."""
-    if qkv.device.type == "cpu":
-        return flat_attention_reference(qkv, padding_mask, num_heads)
-    return flash_attention_flat(qkv, padding_mask, num_heads)
+    """Attention on the raw fused-qkv projection (B, S, 3C) -> (B, S, C),
+    through ``FlatAttention`` on every device and under every grad mode (it
+    records nothing where no gradient is wanted). A CUDA tensor goes to the
+    hand-written kernels (or their wrappers raise); a CPU tensor to the
+    plain versions."""
+    return FlatAttention.apply(qkv, padding_mask, num_heads)

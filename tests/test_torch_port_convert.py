@@ -92,8 +92,7 @@ def test_other_families_raise():
     for kw in (dict(dataset="CREMAD", lorb="base"),
                dict(dataset="CREMAD", lorb="large"),
                dict(dataset="Food101", clip=True),
-               dict(dataset="IEMOCAP", lorb="m3ae", modal3=True),
-               dict(dataset="Food101", lorb="m3ae", modulation="QMF")):
+               dict(dataset="IEMOCAP", lorb="m3ae", modal3=True)):
         cfg = MLAConfig(**kw).validate()
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_classifier(cfg)
