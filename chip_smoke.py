@@ -14,7 +14,10 @@ result line:
               the shapes the serving and training paths give it (and a few
               edge shapes), with the tolerance stated; kernel, plain and
               library times from CUDA events; the least time the card could
-              take.
+              take. The 3x3 conv (B3) at the 8 CREMA-D ResNet-18 body shapes
+              in bf16 and fp32 and one odd edge, and its dx through the
+              Conv3x3 autograd Function against the plain version's
+              autograd.
 4. serving  — the port's serving path at full width: the base M3AE
               classifier (Food-101, 101 classes, --gs_flag -dynamic, seeded
               weights) is exported with export_serving (ladder 1/8/64,
@@ -38,8 +41,25 @@ result line:
               parameter checked finite. Then one profiled MLA step, and one
               MLA step at B=2 in float32 on the card against the same step
               on the CPU (plain versions there) from the same weights.
+6. AV serving — the CREMA-D AVClassifier (2x ResNet-18, 6 classes, spec
+              (1, 129, 626), 3 frames of 224x224, --gs_flag -dynamic,
+              --pallas_conv on, seeded weights) through export_serving ->
+              load_serving -> run_batch at n = 1, 3, 64: 26 B3 launches per
+              dispatch (13 per ResNet), finite logits, running statistics
+              unchanged, bf16 on the card against fp32 on the CPU; one n=64
+              request profiled.
+7. AV training — the same classifier, float32 master weights, bf16 compute,
+              --pallas_conv on: 2 warm-up and 5 timed MLA steps at B=64
+              (52 B3 launches per step: 13 forward + 13 dx in each
+              sub-step), then the same steps of a --pallas_conv off model
+              (cuDNN, no launch) as the step-level yardstick; an eval batch
+              (26 launches, running statistics unchanged), a joint OGM_GE
+              and a QMF step at B=8 (52 each), a profiled step, and an fp32
+              MLA step at B=2 on the card against the CPU (parameters,
+              momentum, losses and BatchNorm running statistics).
 
-The second-to-last line is the kernels JSON; the last line is
+Each path's launch counters are set to 0 just before it runs and read just
+after. The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 
@@ -76,6 +96,11 @@ TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (2e-2, 1e-2)}
 # gains rtol 1e-5 because its gradients reach |x| ~ 10, where 1e-5 is a few
 # fp32 ulps of sums over 257 keys taken in another order
 TOL_BWD = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1e-2)}
+# the 3x3 conv: fp32 products are exact and sums over 9*C <= 4608 terms run
+# in another order than cuDNN's (|y| ~ 1: a few 1e-6); bf16 outputs round
+# once from fp32 sums, so a sum near a rounding boundary differs by one
+# bf16 ulp (2^-8 relative)
+TOL_CONV = {torch.float32: (5e-5, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
 
 
 def fail(msg: str):
@@ -112,7 +137,7 @@ def time_cuda(fn, reps: int) -> float:
 
 # ---------------------------------------------------------------- phase 2
 
-KERNEL_SOURCES = ("flat_attention", "flat_attention_bwd")
+KERNEL_SOURCES = ("flat_attention", "flat_attention_bwd", "conv3x3")
 
 
 def phase_build():
@@ -263,6 +288,101 @@ def phase_kernels():
     check(not bad, f"flat attention backward kernel disagrees with its "
                    f"plain version: {bad}")
     return rows, bwd_rows
+
+
+# the stride-1 3x3 sites of the CREMA-D ResNet-18s at B = 64 clips (3 frames
+# each): (B, H, W, C) as benchmarks/bench_conv.py names them, then the audio
+# branch's odd edges (129 x 626 spectrograms)
+CONV_SHAPES = {"vis_l1": (192, 56, 56, 64), "vis_l2": (192, 28, 28, 128),
+               "vis_l3": (192, 14, 14, 256), "vis_l4": (192, 7, 7, 512),
+               "aud_l1": (64, 33, 157, 64), "aud_l2": (64, 17, 79, 128),
+               "aud_l3": (64, 9, 40, 256), "aud_l4": (64, 5, 20, 512)}
+
+
+def conv_case(name, b, h, w, c, dtype, seed=0, reps=20):
+    from mla_tpu_torch.ops.conv3x3 import (conv3x3, conv3x3_reference,
+                                           pack_weight)
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, c, h, w)).astype(
+        np.float32)).to("cuda", dtype).contiguous(
+            memory_format=torch.channels_last)
+    wt = torch.from_numpy((rng.standard_normal((c, c, 3, 3))
+                           / np.sqrt(9 * c)).astype(np.float32)).to(
+                               "cuda", dtype)
+    got = conv3x3(x, wt)
+    torch.cuda.synchronize()
+    want = conv3x3_reference(x, wt).float()
+    atol, rtol = TOL_CONV[dtype]
+    diff = (got.float() - want).abs()
+    es = x.element_size()
+    # x read once, the packed weight read once, the output written once
+    nbytes = 2 * x.numel() * es + pack_weight(wt, dtype).numel() * es
+    flops = 2 * b * h * w * 9 * c * c
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    conv2d = torch.nn.functional.conv2d
+    row = {"name": name, "shape": [b, h, w, c],
+           "dtype": str(dtype).replace("torch.", ""),
+           "max_abs_err": float(diff.max()), "atol": atol, "rtol": rtol,
+           "ok": bool(torch.all(diff <= atol + rtol * want.abs())),
+           "ms": time_cuda(lambda: conv3x3(x, wt), reps),
+           "plain_ms": time_cuda(lambda: conv3x3_reference(x, wt), reps),
+           # yardstick only: one cuDNN call on the same channels_last
+           # operands; the port never calls it in B3's place
+           "library_ms": time_cuda(lambda: conv2d(x, wt, padding=1), reps),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "gflop": flops / 1e9}
+    row["tflops"] = flops / row["ms"] / 1e9
+    print("[kernel] conv3x3 " + json.dumps(row), flush=True)
+    return row
+
+
+def conv_dx_case(name, b, h, w, c, dtype, seed=0):
+    """dx (B3 on the rotated weight) and dw (PyTorch's weight-gradient)
+    through Conv3x3 against the plain version's autograd, same inputs."""
+    from mla_tpu_torch.ops.conv3x3 import Conv3x3, conv3x3_reference
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, c, h, w)).astype(
+        np.float32)).to("cuda", dtype).contiguous(
+            memory_format=torch.channels_last).requires_grad_()
+    wt = torch.from_numpy((rng.standard_normal((c, c, 3, 3))
+                           / np.sqrt(9 * c)).astype(np.float32)).to(
+                               "cuda", dtype).requires_grad_()
+    g = torch.from_numpy(rng.standard_normal((b, c, h, w)).astype(
+        np.float32)).to("cuda", dtype).contiguous(
+            memory_format=torch.channels_last)
+    got = torch.autograd.grad(Conv3x3.apply(x, wt), (x, wt), g)
+    want = torch.autograd.grad(conv3x3_reference(x, wt), (x, wt), g)
+    torch.cuda.synchronize()
+    atol, rtol = TOL_CONV[dtype]
+    dx_diff = (got[0].float() - want[0].float()).abs()
+    # dw is PyTorch's conv weight-gradient on both sides (cuDNN may pick
+    # another algorithm for a dw-only call: 1e-5 in fp32, about one bf16
+    # ulp, 2^-8, in bf16)
+    rel_dw = float(torch.linalg.norm(got[1].float() - want[1].float())
+                   / torch.linalg.norm(want[1].float()))
+    dw_tol = 1e-5 if dtype == torch.float32 else 1e-2
+    row = {"name": name, "shape": [b, h, w, c],
+           "dtype": str(dtype).replace("torch.", ""),
+           "dx_max_abs_err": float(dx_diff.max()), "dw_rel_l2": rel_dw,
+           "ok": bool(torch.all(dx_diff <= atol + rtol
+                                * want[0].float().abs())) and rel_dw <= dw_tol}
+    print("[kernel] conv3x3 dx " + json.dumps(row), flush=True)
+    return row
+
+
+def phase_conv_kernels():
+    rows, dx_rows = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, (name, shape) in enumerate(CONV_SHAPES.items()):
+            rows.append(conv_case(name, *shape, dtype, seed=i))
+        rows.append(conv_case("odd_edge", 3, 1, 3, 128, dtype, seed=99))
+        dx_rows.append(conv_dx_case("vis_l1", *CONV_SHAPES["vis_l1"], dtype))
+        dx_rows.append(conv_dx_case("aud_l4", *CONV_SHAPES["aud_l4"], dtype))
+    bad = [r for r in rows + dx_rows if not r["ok"]]
+    check(not bad, f"conv3x3 kernel disagrees with its plain version: {bad}")
+    return rows, dx_rows
 
 
 # ---------------------------------------------------------------- phase 4
@@ -453,6 +573,12 @@ def mla_step_flops(b, c, depth, s=257, n_classes=101):
     return 3 * (encoder(0) + encoder(2 * b * (s - 1) * 768 * c))
 
 
+def rel_l2(a, ref) -> float:
+    """Relative L2 distance of two name-keyed tensor dicts, over all names."""
+    num = sum(float(torch.sum((a[n] - ref[n]) ** 2)) for n in ref)
+    return (num / sum(float(torch.sum(ref[n] ** 2)) for n in ref)) ** 0.5
+
+
 def all_finite(tensors) -> bool:
     return all(bool(torch.isfinite(t).all()) for t in tensors)
 
@@ -610,10 +736,6 @@ def cpu_agreement():
         del model, st
     torch.cuda.empty_cache()
 
-    def rel_l2(a, ref):
-        num = sum(float(torch.sum((a[n] - ref[n]) ** 2)) for n in ref)
-        return (num / sum(float(torch.sum(ref[n] ** 2)) for n in ref)) ** 0.5
-
     (pg, mg, lg, tg), (pc, mc, lc, tc) = out["cuda"], out["cpu"]
     # (a leaf the step never reached with a zero weight has no momentum)
     worst = max((float(torch.linalg.norm(mg[n] - mc[n])
@@ -632,6 +754,340 @@ def cpu_agreement():
     return res
 
 
+# ---------------------------------------------------------------- phases 6-7
+
+AV_BATCH = 64                     # clips per training step (3 frames each)
+AV_STAGES = (2, 2, 2, 2)          # ResNet-18 at full depth
+B3_SITES = 13                     # stride-1 3x3 C==F convs per ResNet-18
+
+
+def av_config(**kw):
+    from mla_tpu_torch.core.config import MLAConfig
+    base = dict(dataset="CREMAD", lorb="base", pallas_conv="on",
+                resnet_stages=AV_STAGES)
+    base.update(kw)
+    return MLAConfig(**base).validate()
+
+
+def av_request(rng, n):
+    """A CREMA-D-shaped request: (1, 129, 626) spectrograms and 3 frames of
+    3 x 224 x 224 (benchmarks/profile_step.py)."""
+    return {"spec": rng.standard_normal((n, 1, 129, 626)).astype(np.float32),
+            "image": rng.standard_normal((n, 3, 3, 224, 224)).astype(
+                np.float32)}
+
+
+def av_batch(rng, n, n_data=None, device="cuda"):
+    rows = {**av_request(rng, n), "label": rng.integers(0, 6, n),
+            "valid": np.ones(n, np.float32)}
+    if n_data is not None:
+        rows["idx"] = rng.permutation(n_data)[:n]
+    return {k: torch.from_numpy(np.asarray(v)).to(device)
+            for k, v in rows.items()}
+
+
+def b3_launches():
+    from mla_tpu_torch.ops.conv3x3 import conv3x3
+    return conv3x3.launches
+
+
+def running_stats(model):
+    return {n: t.detach().clone() for n, t in model.named_buffers()
+            if n.endswith(("running_mean", "running_var"))}
+
+
+def same_stats(a, b) -> bool:
+    return all(torch.equal(a[n], b[n]) for n in a)
+
+
+def phase_av_serving(work: Path):
+    from mla_tpu_torch.models.classifiers import build_classifier
+    from mla_tpu_torch.ops.conv3x3 import conv3x3
+    from mla_tpu_torch.runtime.export import export_serving, load_serving
+    from mla_tpu_torch.runtime.serve import run_batch
+
+    cfg = av_config(gs_flag=True, dynamic=True)
+    model = build_classifier(cfg, seed=0)
+    art = export_serving(cfg, model, str(work / "av"),
+                         batch_sizes=(1, 8, 64), weights_dtype="float32")
+    del model
+    torch.cuda.reset_peak_memory_stats()
+    srv = load_serving(art)                       # cuda, bf16 compute
+    check(srv.device.type == "cuda" and srv.compute_dtype == "bfloat16"
+          and not srv.model.training, "AV serving model not in eval mode "
+          "on the card in bf16")
+    stats0 = running_stats(srv.model)
+    rng = np.random.default_rng(0)
+    reqs = {n: av_request(rng, n) for n in (1, 3, 64)}
+    per_dispatch = 2 * B3_SITES
+
+    # -- the main path: counters 0 just before, read just after ----------
+    conv3x3.launches = 0
+    dispatches, rungs = 0, {}
+    for n, feats in reqs.items():
+        times = []
+        for i in range(12):                       # 2 warm-up + 10 timed
+            before = conv3x3.launches
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = run_batch(srv, feats)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            dispatches += 1
+            check(conv3x3.launches - before == per_dispatch,
+                  f"AV n={n}: {conv3x3.launches - before} B3 launches in one "
+                  f"dispatch, expected {per_dispatch}")
+            if i >= 2:
+                times.append(dt)
+        for k in ("fused", "logits_a", "logits_v"):
+            check(out[k].shape == (n, 6) and bool(np.isfinite(out[k]).all()),
+                  f"AV n={n}: {k} {out[k].shape} not finite")
+        med = float(np.median(times)) * 1e3
+        rungs[n] = {"rung": srv._rung(n), "median_ms": med,
+                    "min_ms": float(np.min(times)) * 1e3,
+                    "rows_per_s": n / med * 1e3, "reps": len(times)}
+        print(f"[av-serve] n={n} (rung {srv._rung(n)}): median {med:.2f} ms, "
+              f"{n / med * 1e3:.1f} clips/s", flush=True)
+    launches = conv3x3.launches
+    # -- end of the main path ---------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == per_dispatch * dispatches,
+          f"{launches} B3 launches over {dispatches} AV dispatches")
+    check(same_stats(stats0, running_stats(srv.model)),
+          "a serving dispatch changed a BatchNorm running statistic")
+    profile = profile_call(lambda: srv(reqs[64]))
+    print(f"[trace] AV n=64: wall {profile['wall_ms']:.2f} ms, device busy "
+          f"{profile['device_ms']:.2f} ms ({100 * profile['busy_share']:.1f}"
+          f"%); top: " + json.dumps(profile["top"][:8]), flush=True)
+    two = {k: v[:2] for k, v in reqs[64].items()}
+    gpu = srv(two)
+    del srv
+    torch.cuda.empty_cache()
+    cpu = load_serving(art, device="cpu", compute_dtype="float32")(two)
+    rel = {k: float(np.linalg.norm(gpu[k] - cpu[k]) / np.linalg.norm(cpu[k]))
+           for k in cpu}
+    print(f"[av-serve] {dispatches} dispatches, {launches} B3 launches, peak "
+          f"{peak / 2**30:.2f} GiB; bf16 card vs fp32 CPU, relative L2: "
+          f"{rel}", flush=True)
+    # bf16 activations through 20 BatchNorms and 17 convs per ResNet
+    check(all(v <= 5e-2 for v in rel.values()),
+          f"AV card logits drift from the CPU float32 reference: {rel}")
+    return {"rungs": rungs, "dispatches": dispatches, "launches": launches,
+            "peak_bytes": peak, "rel_l2_vs_cpu": rel, "profile": profile}
+
+
+def av_conv_flops(model, batch):
+    """Forward FLOPs of every conv of both ResNets on ``batch`` (from the
+    output shapes of one eval-mode forward), and those of the B3 sites."""
+    from mla_tpu_torch.models import resnet
+    from mla_tpu_torch.ops.conv3x3 import eligible
+    real, total, b3 = resnet.conv2d, [0], [0]
+
+    def counting(conv, x, pallas=False):
+        out = real(conv, x, pallas)
+        f = 2 * out.numel() * conv.in_channels * conv.kernel_size[0] \
+            * conv.kernel_size[1]
+        total[0] += f
+        if pallas and conv.stride == (1, 1) and eligible(x, conv.weight):
+            b3[0] += f
+        return out
+    resnet.conv2d = counting
+    was = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            model.encode(batch, "a")
+            model.encode(batch, "v")
+    finally:
+        resnet.conv2d = real
+        model.train(was)
+    return total[0], b3[0]
+
+
+def av_steps(step, state, batches, lr, expect, label):
+    """Run ``batches`` through ``step``, checking ``expect`` B3 launches per
+    step; -> (state, per-step seconds, per-step metrics)."""
+    times, losses = [], []
+    for i, batch in enumerate(batches):
+        before = b3_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step(state, batch, lr, i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        check(b3_launches() - before == expect,
+              f"{label} step {i}: {b3_launches() - before} B3 launches, "
+              f"expected {expect}")
+        losses.append({k: float(v) for k, v in metrics.items()})
+    return state, times, losses
+
+
+def phase_av_training():
+    from mla_tpu_torch.evals.metrics import make_eval_step, summarize_counts
+    from mla_tpu_torch.models.classifiers import build_classifier
+    from mla_tpu_torch.ops.conv3x3 import conv3x3
+    from mla_tpu_torch.train import optim
+    from mla_tpu_torch.train.state import create_train_state
+    from mla_tpu_torch.train.steps import make_train_step
+
+    b, n_warm, n_timed = AV_BATCH, 2, 5
+    cfg = av_config(gs_flag=True, batch_size=b)
+    t0 = time.perf_counter()
+    model = build_classifier(cfg, seed=0)
+    spec = optim.make_spec(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    state = create_train_state(model, cfg, spec, seed=0)
+    check(all(p.is_cuda and p.dtype == torch.float32
+              for p in state.params.values())
+          and all(t.dtype == torch.float32 for t in
+                  running_stats(model).values())
+          and model.audio_net.compute_dtype == torch.bfloat16,
+          "AV train state not float32 weights and statistics with bf16 "
+          "compute on the card")
+    rng = np.random.default_rng(1)
+    batches = [av_batch(rng, b) for _ in range(n_warm + n_timed)]
+    eval_batch = av_batch(rng, b)
+    step = make_train_step(model, cfg, spec, len_dl=len(batches))
+    lr = optim.lr_for_epoch(cfg, 0)
+    flops_fwd, flops_b3 = av_conv_flops(model, batches[0])
+    print(f"[av-train] built the AV classifier and its train state in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    others = {}
+    for name, kw in (("joint_ogm_ge", {"modulation": "OGM_GE"}),
+                     ("qmf", {"modulation": "QMF"})):
+        c = av_config(batch_size=8, **kw)
+        m = build_classifier(c, seed=0)
+        s = optim.make_spec(c)
+        others[name] = (m, c, s, create_train_state(m, c, s, n_data=64,
+                                                    seed=0),
+                        av_batch(rng, 8, n_data=64))
+    per_step = 2 * 2 * B3_SITES        # 2 sub-steps x (forward + dx)
+
+    # -- the main path: counters 0 just before, read just after ----------
+    conv3x3.launches = 0
+    state, times, losses = av_steps(step, state, batches, lr, per_step,
+                                    "AV MLA")
+    stats0 = running_stats(model)
+    before = b3_launches()
+    counts = make_eval_step(model, cfg)(eval_batch)
+    check(b3_launches() - before == 2 * B3_SITES,
+          f"AV eval: {b3_launches() - before} B3 launches")
+    check(same_stats(stats0, running_stats(model)) and model.training,
+          "the eval step changed a running statistic or the model's mode")
+    check(float(counts["num"].sum()) == b, f"AV eval counts {counts['num']}")
+    accuracy = summarize_counts(counts)
+    other_losses = {}
+    for name, (m, c, s, st, bt) in others.items():
+        st, _, ls = av_steps(make_train_step(m, c, s, len_dl=1), st, [bt],
+                             lr, per_step, name)
+        other_losses[name] = ls[0]
+        check(all(np.isfinite(v) for v in ls[0].values())
+              and all_finite(st.params.values()),
+              f"AV {name} step: non-finite loss or parameter")
+    launches = conv3x3.launches
+    # -- end of the main path ---------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    del others
+    check(all(np.isfinite(v) for ls in losses for v in ls.values())
+          and all_finite(state.params.values())
+          and all_finite(running_stats(model).values()),
+          f"non-finite AV loss, parameter or statistic: {losses}")
+    med = float(np.median(times[n_warm:])) * 1e3
+    flops = 3 * flops_fwd        # each sub-step: one encoder fwd + bwd
+    share = flops / (med * 1e-3) / PEAK_FLOPS[torch.bfloat16]
+    print(f"[av-train] conv FLOPs per MLA step at B={b}: {flops / 1e12:.3f} "
+          f"TFLOP ({flops_b3 / flops_fwd * 100:.1f}% at the B3 sites); MLA "
+          f"median {med:.2f} ms of {n_timed} steps, {b / med * 1e3:.1f} "
+          f"clips/s, {share * 100:.2f}% of the bf16 peak; peak "
+          f"{peak / 2**30:.2f} GiB; losses {losses[0]['loss']:.4f} -> "
+          f"{losses[-1]['loss']:.4f}; {launches} B3 launches; eval "
+          f"{accuracy}; joint OGM_GE / QMF {other_losses}", flush=True)
+    profile = profile_call(lambda: step(state, batches[0], lr, 0))
+    print(f"[trace] AV MLA step B={b}: wall {profile['wall_ms']:.2f} ms, "
+          f"device busy {profile['device_ms']:.2f} ms "
+          f"({100 * profile['busy_share']:.1f}%); top: "
+          + json.dumps(profile["top"][:10]), flush=True)
+    del state, model, step
+    torch.cuda.empty_cache()
+
+    # the step-level yardstick: the same steps with cuDNN in B3's place
+    cfg_off = av_config(gs_flag=True, batch_size=b, pallas_conv="off")
+    m_off = build_classifier(cfg_off, seed=0)
+    st_off = create_train_state(m_off, cfg_off, spec, seed=0)
+    _, t_off, _ = av_steps(make_train_step(m_off, cfg_off, spec, len(batches)),
+                           st_off, batches, lr, 0, "AV MLA --pallas_conv off")
+    med_off = float(np.median(t_off[n_warm:])) * 1e3
+    print(f"[av-train] --pallas_conv off (cuDNN): MLA median {med_off:.2f} ms, "
+          f"{b / med_off * 1e3:.1f} clips/s", flush=True)
+    del m_off, st_off, batches
+    torch.cuda.empty_cache()
+    return {"batch": b, "step_ms": [t * 1e3 for t in times],
+            "median_step_ms": med, "clips_per_s": b / med * 1e3,
+            "off_step_ms": [t * 1e3 for t in t_off],
+            "off_median_step_ms": med_off,
+            "off_clips_per_s": b / med_off * 1e3, "peak_bytes": peak,
+            "conv_flops": flops, "b3_flop_share": flops_b3 / flops_fwd,
+            "bf16_peak_share": share, "losses": losses, "eval": accuracy,
+            "other_losses": other_losses, "launches": launches,
+            "profile": profile, "cpu_agreement": av_cpu_agreement()}
+
+
+def av_cpu_agreement():
+    """One MLA step at B=2, full width and depth, float32, --pallas_conv on:
+    on the card (B3 and cuDNN) against the CPU (plain versions), from the
+    same weights, statistics and batch. Relative L2 over all parameters,
+    momentum buffers and BatchNorm running statistics."""
+    from mla_tpu_torch.models.classifiers import build_classifier
+    from mla_tpu_torch.train import optim
+    from mla_tpu_torch.train.state import create_train_state
+    from mla_tpu_torch.train.steps import make_train_step
+
+    cfg = av_config(gs_flag=True, batch_size=2, compute_dtype="float32")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = build_classifier(cfg, seed=1)
+        spec = optim.make_spec(cfg)
+        st = create_train_state(model, cfg, spec, seed=1, device=dev)
+        batch = av_batch(np.random.default_rng(7), 2, device=dev)
+        before = b3_launches()
+        t = time.perf_counter()
+        st, met = make_train_step(model, cfg, spec, len_dl=1)(
+            st, batch, optim.lr_for_epoch(cfg, 0), 0)
+        met = {k: float(v) for k, v in met.items()}
+        n = b3_launches() - before
+        check(n == (4 * B3_SITES if dev == "cuda" else 0),
+              f"AV fp32 step on {dev}: {n} B3 launches")
+        out[dev] = ({n: p.detach().cpu() for n, p in st.params.items()},
+                    {n: m.cpu() for n, m in
+                     st.opt_state["momentum"].items()},
+                    {n: t.cpu() for n, t in running_stats(model).items()},
+                    met, time.perf_counter() - t)
+        del model, st
+    torch.cuda.empty_cache()
+
+    (pg, mg, sg, lg, tg), (pc, mc, sc, lc, tc) = out["cuda"], out["cpu"]
+    worst = max((float(torch.linalg.norm(mg[n] - mc[n])
+                       / torch.linalg.norm(mc[n])), n)
+                for n in mc if bool(torch.any(mc[n] != 0)))
+    res = {"params_rel_l2": rel_l2(pg, pc), "momentum_rel_l2": rel_l2(mg, mc),
+           "momentum_worst_param": {"name": worst[1], "rel_l2": worst[0]},
+           "running_stats_rel_l2": rel_l2(sg, sc),
+           "loss_rel": {k: abs(lg[k] - lc[k]) / abs(lc[k]) for k in lc},
+           "losses_card": lg, "losses_cpu": lc, "step_s_card": tg,
+           "step_s_cpu": tc}
+    print(f"[av-train] fp32 MLA step B=2, card vs CPU: {json.dumps(res)}",
+          flush=True)
+    # the running statistics and losses come from the forward (sums in
+    # another order: 1e-5); the momentum also from ReLU masks, which flip
+    # where a ReLU input lies within rounding of 0 (one flip in a debug
+    # step on the CPU moves a stem gradient by ~1%): 1e-2
+    check(res["params_rel_l2"] <= 1e-5 and res["momentum_rel_l2"] <= 1e-2
+          and res["running_stats_rel_l2"] <= 1e-5
+          and max(res["loss_rel"].values()) <= 1e-4,
+          f"the card's fp32 AV step drifts from the CPU's: {res}")
+    return res
+
+
 # ---------------------------------------------------------------- main
 
 def main():
@@ -643,16 +1099,21 @@ def main():
     print(f"[device] {smi}")
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{kind} x{count}", flush=True)
+    from mla_tpu_torch.device import set_matmul_precision
+    set_matmul_precision()      # fp32 plain versions in full fp32, no TF32
     t_start = time.perf_counter()
     build_s = phase_build()
     rows, bwd_rows = phase_kernels()
+    conv_rows, conv_dx_rows = phase_conv_kernels()
     (ROOT / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "build"))
     try:
         serving = phase_serving(work)
+        av_serving = phase_av_serving(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     training = phase_training()
+    av_training = phase_av_training()
 
     def main_shape(rs):
         return next(r for r in rs if r["shape"] == [64, 257, 12, 64]
@@ -686,11 +1147,27 @@ def main():
                 "fwd_plus_bwd_ms": bwd["fwd_plus_bwd_ms"],
                 "max_abs_err_all": max(r["max_abs_err"] for r in bwd_rows),
                 "all_ok": all(r["ok"] for r in bwd_rows)}]
+    conv = next(r for r in conv_rows
+                if r["name"] == "vis_l1" and r["dtype"] == "bfloat16")
+    kernels.append({
+        "name": "conv3x3", "route": "cuda",
+        "at": "B=192 H=W=56 C=F=64 bf16 (visual layer 1)",
+        "source": "mla_tpu_torch/ops/csrc/conv3x3.cu",
+        "replaces": "mla_tpu/ops/conv3x3.py:95",
+        # AV serving dispatches + AV training steps, eval, joint, QMF
+        "launches": av_serving["launches"] + av_training["launches"],
+        "max_abs_err": conv["max_abs_err"], "ms": conv["ms"],
+        "plain_ms": conv["plain_ms"], "bound_ms": conv["bound_ms"],
+        "bound_by": conv["bound_by"], "library_ms": conv["library_ms"],
+        "max_abs_err_all": max(r["max_abs_err"] for r in conv_rows),
+        "all_ok": all(r["ok"] for r in conv_rows + conv_dx_rows)})
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
         "device": smi, "torch": torch.__version__, "build_s": build_s,
         "kernel_cases": rows, "bwd_kernel_cases": bwd_rows,
+        "conv_kernel_cases": conv_rows, "conv_dx_cases": conv_dx_rows,
         "serving": serving, "training": training,
+        "av_serving": av_serving, "av_training": av_training,
         "seconds": time.perf_counter() - t_start}, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -64,11 +64,21 @@ def make_eval_step(model, cfg):
     {'num','acc','acc_a','acc_v'[,'acc_t']} for the caller to accumulate
     (valid() semantics, main.py:486-679). ``batch`` holds the model's inputs,
     ``label`` and ``valid``; the model (with its weights) runs under
-    ``torch.inference_mode``."""
+    ``torch.inference_mode`` in eval mode (BatchNorm on its running
+    statistics, which it leaves unchanged, the JAX package's
+    ``train=False``), and is put back in the mode it was found in."""
     modalities = modalities_of(cfg)
     n_classes = cfg.n_classes
 
     def step(batch):
+        was_training = model.training
+        model.eval()
+        try:
+            return _counts(batch)
+        finally:
+            model.train(was_training)
+
+    def _counts(batch):
         with torch.inference_mode():
             valid, label = batch["valid"], batch["label"].long()
             out_m, fused = eval_logits(model, cfg, batch, valid)

@@ -3,9 +3,11 @@
 ``state_dict_from_jax`` is the port's own counterpart of the JAX package's
 ``export_classifier``: it turns a Flax parameter tree (nested dicts of numpy
 arrays) into the reference PyTorch state_dict that the port's modules use
-(Dense kernel (in, out) -> Linear weight (out, in); LayerNorm scale/bias ->
-weight/bias; a ``--scan_blocks`` tree's stacked ``blocks`` -> per-block
-entries). ``load_reference_checkpoint`` reads a reference ``saved_dict``
+(Dense kernel (in, out) -> Linear weight (out, in); Conv kernel HWIO ->
+OIHW; LayerNorm and BatchNorm scale/bias -> weight/bias, and flax
+``batch_stats`` mean/var -> BatchNorm ``running_mean``/``running_var`` with
+``num_batches_tracked`` 0; a ``--scan_blocks`` tree's stacked ``blocks`` ->
+per-block entries). ``load_reference_checkpoint`` reads a reference ``saved_dict``
 ``.pth`` (reference main.py:915-927, as written by ``main.py --export_torch``)
 and strips the DataParallel ``module.`` prefix.
 
@@ -13,8 +15,9 @@ The train state crosses the same way: ``opt_state_from_jax`` maps the JAX
 optimizer state (SGD ``momentum``, Adam ``m``/``v``/``t``, trees shaped
 like the params) onto the port's parameter names with the same key mapping,
 and ``gs_state_from_jax`` / ``qmf_state_from_jax`` carry the GS projector
-and the QMF history. They read plain attributes and arrays, so the port
-needs none of the JAX package to take them.
+and the QMF history; ``batch_stats_from_jax`` the BatchNorm running
+statistics. They read plain attributes and arrays, so the port needs none
+of the JAX package to take them.
 """
 
 from __future__ import annotations
@@ -44,6 +47,57 @@ def _linear(sd, node, name):
 def _layer_norm(sd, node, name):
     sd[name + ".weight"] = _t(node["scale"])
     sd[name + ".bias"] = _t(node["bias"])
+
+
+def _conv(sd, node, name):
+    sd[name + ".weight"] = _t(np.asarray(node["kernel"]).transpose(3, 2, 0, 1))
+
+
+# a flax ResNet block's submodules -> the reference BasicBlock's
+_BLOCK = {"conv1": "conv1", "bn1": "bn1", "conv2": "conv2", "bn2": "bn2",
+          "downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}
+
+
+def _resnet_nodes(tree: Mapping, prefix: str):
+    """(flax node, torch name, kind) over a ResNet18 tree (params or
+    batch_stats), kind 'conv' or 'bn'. Iterates the blocks present, so
+    --resnet_stages variants map too (``export_resnet18``)."""
+    if "conv1" in tree:
+        yield tree["conv1"], prefix + "conv1", "conv"
+    if "bn1" in tree:
+        yield tree["bn1"], prefix + "bn1", "bn"
+    for name in sorted(tree):
+        if not name.startswith("layer"):
+            continue
+        stage, blk = name[len("layer"):].split("_")
+        for sub, torch_name in _BLOCK.items():
+            if sub in tree[name]:
+                yield (tree[name][sub],
+                       f"{prefix}layer{stage}.{blk}.{torch_name}",
+                       "conv" if "conv" in sub else "bn")
+
+
+def resnet_state_dict(params: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """ResNet18 params -> reference models/backbone.py parameter names."""
+    sd: Dict[str, torch.Tensor] = {}
+    for node, name, kind in _resnet_nodes(params, prefix):
+        (_conv if kind == "conv" else _layer_norm)(sd, node, name)
+    return sd
+
+
+def batch_stats_from_jax(batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ``batch_stats`` ({'audio_net': {...}, 'visual_net': {...}}) ->
+    the BatchNorm buffers: ``running_mean``/``running_var`` (float32) and
+    ``num_batches_tracked`` 0, under the reference names."""
+    sd: Dict[str, torch.Tensor] = {}
+    for net in ("audio_net", "visual_net"):
+        for node, name, _ in _resnet_nodes(batch_stats.get(net, {}),
+                                           f"{net}."):
+            sd[name + ".running_mean"] = _t(node["mean"])
+            sd[name + ".running_var"] = _t(node["var"])
+            sd[name + ".num_batches_tracked"] = torch.zeros((),
+                                                            dtype=torch.long)
+    return sd
 
 
 def _unstack_blocks(params: Mapping) -> Dict:
@@ -94,16 +148,26 @@ def m3ae_state_dict(params: Mapping, prefix: str = "") -> Dict[str, torch.Tensor
     return sd
 
 
-def state_dict_from_jax(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
+def state_dict_from_jax(params: Mapping, cfg, batch_stats=None
+                        ) -> Dict[str, torch.Tensor]:
     """Full Flax classifier params -> the reference classifier state_dict
-    (float32 tensors, no ``module.`` prefix). Ported family: ``--lorb m3ae``
-    without ``--modal3``."""
-    if cfg.lorb != "m3ae" or cfg.modal3:
+    (float32 tensors, no ``module.`` prefix). Ported families: ``--lorb
+    m3ae`` without ``--modal3`` and ``--lorb base`` without ``--clip``.
+    ``batch_stats`` (the AV family's) adds the BatchNorm buffers; without it
+    the dict holds parameters only, the shape of an optimizer moment tree."""
+    if cfg.lorb == "base" and not cfg.clip:
+        sd = resnet_state_dict(params["audio_net"], "audio_net.")
+        sd.update(resnet_state_dict(params["visual_net"], "visual_net."))
+        if batch_stats is not None:
+            sd.update(batch_stats_from_jax(batch_stats))
+    elif cfg.lorb == "m3ae" and not cfg.modal3:
+        sd = m3ae_state_dict(params["mae_a"], "mae_a.")
+        sd.update(m3ae_state_dict(params["mae_v"], "mae_v."))
+    else:
         raise NotImplementedError(
-            "state_dict_from_jax covers the ported M3AE classifier "
-            "(--lorb m3ae without --modal3); see ROADMAP queue A")
-    sd = m3ae_state_dict(params["mae_a"], "mae_a.")
-    sd.update(m3ae_state_dict(params["mae_v"], "mae_v."))
+            "state_dict_from_jax covers the ported classifiers (--lorb m3ae "
+            "without --modal3, --lorb base without --clip); see ROADMAP "
+            "queue A")
     for fc in ("audio_fc", "visual_fc"):
         if fc in params:
             _linear(sd, params[fc], fc)

@@ -7,9 +7,11 @@ Layout of an export directory:
     weights.pt   the classifier's state_dict in the reference's names
 
 This is not the JAX package's artifact (StableHLO + flax msgpack), which the
-port cannot read without JAX. The port's artifact holds weights and rebuilds
-the model from ``meta.json``; the forward is the port's own code, with the
-hand-written attention kernel on the card.
+port cannot read without JAX. The port's artifact holds weights (and, for
+the AV family, BatchNorm's float32 running statistics) and rebuilds the
+model from ``meta.json``; the forward is the port's own code in eval mode,
+with the hand-written kernels on the card (attention for M3AE; the 3x3 conv
+for AV under ``--pallas_conv on``).
 
 Batch handling follows the JAX artifact: a ladder of batch sizes (default
 1/8/64); ``ServingModel`` pads a request to the smallest rung that holds it
@@ -20,6 +22,7 @@ Run as a module to export from a reference-layout ``.pth``:
     python -m mla_tpu_torch.runtime.export --checkpoint model.pth \
         --dataset Food101 --lorb m3ae --gs_flag -dynamic \
         --export_dir DIR [--export_dtype bfloat16] [--export_batch_sizes 1,8,64]
+    (or --dataset CREMAD --lorb base [--pallas_conv on] for the AV family)
 """
 
 from __future__ import annotations
@@ -35,16 +38,19 @@ import torch
 from mla_tpu_torch.core.config import MLAConfig, config_from_args
 from mla_tpu_torch.device import resolve_device, set_matmul_precision
 from mla_tpu_torch.evals.metrics import eval_logits
-from mla_tpu_torch.models.classifiers import (M3AEClassifier,
-                                              classifier_kwargs, modalities_of)
+from mla_tpu_torch.models.classifiers import (cast_parameters_,
+                                              make_classifier, modalities_of)
 from mla_tpu_torch.models.convert import load_reference_checkpoint
 
 # Per-sample input tensors each ported classifier family reads.
 FEATURE_KEYS: Dict[str, Tuple[str, ...]] = {
     "M3AEClassifier": ("token", "padding_mask", "image"),
+    "AVClassifier": ("spec", "image"),
 }
 
 TEXT_LEN = 256    # the reference's BERT token length (max_length 256)
+SPEC_HW = (129, 626)   # CREMA-D log-spectrogram (benchmarks/profile_step.py)
+N_FRAMES = 3           # CREMA-D frames per clip
 
 _META = "meta.json"
 _WEIGHTS = "weights.pt"
@@ -55,8 +61,14 @@ def feature_keys(model) -> Tuple[str, ...]:
 
 
 def reference_feature_specs(cfg: MLAConfig) -> Dict[str, dict]:
-    """Per-sample feature shapes of the reference M3AE inputs: 256 tokens,
-    3 x image_size^2 pixels (256 unless --image_size)."""
+    """Per-sample feature shapes of the reference inputs. M3AE: 256 tokens,
+    3 x image_size^2 pixels (256 unless --image_size). AV (CREMA-D): a
+    (1, 129, 626) spectrogram and 3 frames of 3 x image_size^2 (224)."""
+    if cfg.lorb == "base":
+        side = cfg.image_size or 224
+        return {"spec": {"shape": [1, *SPEC_HW], "dtype": "float32"},
+                "image": {"shape": [3, N_FRAMES, side, side],
+                          "dtype": "float32"}}
     side = cfg.image_size or 256
     return {"token": {"shape": [TEXT_LEN], "dtype": "int32"},
             "padding_mask": {"shape": [TEXT_LEN], "dtype": "float32"},
@@ -76,8 +88,9 @@ def export_serving(cfg: MLAConfig, model, out_dir: str,
                    example_batch: Optional[Mapping] = None) -> str:
     """Write ``model``'s weights and the serving meta to ``out_dir``.
 
-    weights_dtype 'bfloat16' stores bf16 weights (half the bytes); the
-    compute path is the config's compute dtype either way. Feature shapes
+    weights_dtype 'bfloat16' stores bf16 weights (half the bytes; buffers,
+    BatchNorm's running statistics, stay float32); the compute path is the
+    config's compute dtype either way. Feature shapes
     come from ``example_batch`` (any batch dict) or, without one, from the
     reference inputs (``reference_feature_specs``)."""
     batch_sizes = sorted(set(int(b) for b in batch_sizes))
@@ -99,12 +112,21 @@ def export_serving(cfg: MLAConfig, model, out_dir: str,
                      "dtype": _boundary_dtype(np.asarray(example_batch[k]).dtype)}
                  for k in keys}
     wdt = getattr(torch, weights_dtype)
-    sd = {k: (v.detach().to("cpu", wdt) if v.is_floating_point()
+    params = dict(model.named_parameters())
+    sd = {k: (v.detach().to("cpu", wdt) if k in params
               else v.detach().cpu()).contiguous()
           for k, v in model.state_dict().items()}
     os.makedirs(out_dir, exist_ok=True)
     torch.save(sd, os.path.join(out_dir, _WEIGHTS))
-    enc = model.mae_a.config
+    # what the port needs to rebuild the forward; the JAX artifact bakes
+    # these into its graph instead
+    if type(model).__name__ == "AVClassifier":
+        family = {"resnet_stages": list(model.stages),
+                  "pallas_conv": cfg.pallas_conv}
+    else:
+        enc = model.mae_a.config
+        family = {"m3ae_size": enc.model_type,
+                  "text_vocab_size": enc.text_vocab_size}
     meta = {
         "family": type(model).__name__,
         "modalities": list(modalities_of(cfg)),
@@ -119,11 +141,7 @@ def export_serving(cfg: MLAConfig, model, out_dir: str,
                    "modal3": cfg.modal3, "clip": cfg.clip,
                    "gs_flag": cfg.gs_flag, "modulation": cfg.modulation,
                    "dynamic": cfg.dynamic,
-                   "fusion_method": cfg.fusion_method,
-                   # what the port needs to rebuild the forward; the JAX
-                   # artifact bakes these into its graph instead
-                   "m3ae_size": enc.model_type,
-                   "text_vocab_size": enc.text_vocab_size,
+                   "fusion_method": cfg.fusion_method, **family,
                    "compute_dtype": cfg.compute_dtype,
                    "av_alpha": cfg.av_alpha, "a_alpha": cfg.a_alpha,
                    "v_alpha": cfg.v_alpha, "t_alpha": cfg.t_alpha},
@@ -138,8 +156,11 @@ class ServingModel:
     """A loaded artifact: __call__(features) -> numpy logits dict.
 
     Weights live on ``device`` in the compute dtype (meta's, unless
-    ``compute_dtype`` is given), cast once at load. Pads each request to the
-    smallest exported batch rung (valid=0 rows) and slices the result back.
+    ``compute_dtype`` is given), cast once at load; BatchNorm's running
+    statistics stay float32. The model is in eval mode with no gradients,
+    so a request never changes a running statistic. Pads each request to
+    the smallest exported batch rung (valid=0 rows) and slices the result
+    back.
     """
 
     def __init__(self, out_dir: str, device=None,
@@ -149,22 +170,25 @@ class ServingModel:
         with open(os.path.join(out_dir, _META)) as f:
             self.meta = json.load(f)
         c = self.meta["config"]
+        family = {k: c[k] for k in ("m3ae_size", "pallas_conv") if k in c}
+        if "resnet_stages" in c:
+            family["resnet_stages"] = tuple(c["resnet_stages"])
         self.compute_dtype = compute_dtype or c["compute_dtype"]
         self.cfg = MLAConfig(
             dataset=c["dataset"], lorb=c["lorb"], modal3=c["modal3"],
             clip=c["clip"], gs_flag=c["gs_flag"], modulation=c["modulation"],
             dynamic=c["dynamic"], fusion_method=c["fusion_method"],
-            m3ae_size=c["m3ae_size"], compute_dtype=self.compute_dtype,
+            compute_dtype=self.compute_dtype,
             av_alpha=c["av_alpha"], a_alpha=c["a_alpha"],
-            v_alpha=c["v_alpha"], t_alpha=c["t_alpha"]).validate()
-        self.text_vocab_size = c["text_vocab_size"]
-        with torch.device("meta"):
-            model = M3AEClassifier(text_vocab_size=self.text_vocab_size,
-                                   **classifier_kwargs(self.cfg))
+            v_alpha=c["v_alpha"], t_alpha=c["t_alpha"], **family).validate()
+        self.text_vocab_size = c.get("text_vocab_size")
+        model = make_classifier(self.cfg, self.text_vocab_size or 30522)
         sd = torch.load(os.path.join(out_dir, _WEIGHTS),
                         map_location=self.device, weights_only=True)
         model.load_state_dict(sd, strict=True, assign=True)
-        self.model = model.to(self.device, getattr(torch, self.compute_dtype))
+        dt = getattr(torch, self.compute_dtype)
+        self.model = cast_parameters_(model.to(self.device), dt)
+        self.model.set_compute_dtype(dt)
         self.model.eval().requires_grad_(False)
         self.batch_sizes = self.meta["batch_sizes"]
 
@@ -202,6 +226,8 @@ class ServingModel:
             if a.shape[0] != n:
                 raise ValueError(
                     f"feature '{k}' has {a.shape[0]} rows, expected {n}")
+        if "token" not in names:
+            return n
         # an out-of-range id would fault the embedding gather on the device
         token = np.asarray(features["token"])
         if token.min() < 0 or token.max() >= self.text_vocab_size:
@@ -257,9 +283,8 @@ def main(argv=None):
     if not cfg.export_dir:
         raise SystemExit("--export_dir is required")
     sd = load_reference_checkpoint(ns.checkpoint)
-    vocab = int(sd["mae_a.text_embedding.weight"].shape[0])
-    with torch.device("meta"):
-        model = M3AEClassifier(text_vocab_size=vocab, **classifier_kwargs(cfg))
+    emb = sd.get("mae_a.text_embedding.weight")
+    model = make_classifier(cfg, 30522 if emb is None else int(emb.shape[0]))
     model.load_state_dict(sd, strict=True, assign=True)
     sizes = cfg.export_batch_sizes or (1, 8, cfg.batch_size)
     path = export_serving(cfg, model, cfg.export_dir, batch_sizes=sizes,

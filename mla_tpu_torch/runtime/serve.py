@@ -6,10 +6,10 @@ Batch mode:
         [--output preds.npz] [--topk 5] [--device cuda|cpu]
 
 `feats.npz` holds one array per feature the artifact expects (names from its
-meta.json: token/padding_mask/image), leading axis = examples. Requests
-larger than the biggest exported batch rung are chunked. Output: fused
-logits, per-modality logits, and top-k class ids — written to --output or
-summarized to stdout.
+meta.json: token/padding_mask/image for M3AE, spec/image for AV), leading
+axis = examples. Requests larger than the biggest exported batch rung are
+chunked. Output: fused logits, per-modality logits, and top-k class ids —
+written to --output or summarized to stdout.
 
 Server mode (stdlib-only, no extra deps):
     python -m mla_tpu_torch.runtime.serve --artifact DIR --http PORT \

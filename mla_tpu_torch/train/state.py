@@ -57,7 +57,10 @@ def create_train_state(model: nn.Module, cfg, spec: OptimizerSpec,
     """Train state around ``model`` (built with its weights, e.g. by
     ``build_classifier``), on ``device`` (the card unless 'cpu' is asked
     for). The weights become float32 master weights; the model computes in
-    ``cfg.compute_dtype``, casting them per op."""
+    ``cfg.compute_dtype``, casting them per op (the M3AE encoders and the
+    ResNets alike), and is put in training mode. BatchNorm's running
+    statistics, the JAX state's ``batch_stats``, are the model's float32
+    buffers on the same device."""
     dev = resolve_device(device)
     set_matmul_precision()
     model.to(dev, torch.float32).train()

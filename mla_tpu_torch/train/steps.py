@@ -15,6 +15,13 @@ metrics)``: ``lr`` comes from the epoch schedule (``optim.lr_for_epoch``),
 float (0 = padded row) and, for QMF, ``idx`` (B,) int (n_data for a padded
 row). The state is updated in place and returned; the metrics are 0-d
 tensors on the state's device (reading one synchronises).
+
+Every step puts the model in training mode, the JAX package's
+``train=True``: BatchNorm normalises with the batch statistics and updates
+its running ones in place, in the order the JAX step threads
+``batch_stats`` (the MLA step's audio sub-step updates audio_net's, the
+visual sub-step visual_net's; under --grad_accum one microbatch after the
+other). Under --masked_bn the encoders read ``valid``.
 """
 
 from __future__ import annotations
@@ -133,6 +140,7 @@ def make_mla_train_step(model, cfg, spec: optim.OptimizerSpec, len_dl: int):
 
     def step(state: TrainState, batch, lr, batch_index, epoch=0):
         del epoch
+        model.train()
         valid = batch["valid"]
         n_total = torch.clamp(torch.sum(valid), min=1.0)
         mbs = _microbatches(batch, k) if k > 1 else [batch]
@@ -200,7 +208,8 @@ def _ogm_grad_label(top: str, modal3: bool):
     matches 'mae_a'/'mae_v'/'mae_t' (main.py:352-368), but the 2-modal branch
     only matches 'audio'/'visual' (main.py:396-407) — so for lorb=m3ae/large
     (modules named mae_*) 2-modal OGM modulates NOTHING in the reference,
-    and neither does the port."""
+    and neither does the port; for lorb=base it scales the conv weights of
+    audio_net and visual_net."""
     if modal3:
         return {"mae_a": "a", "mae_v": "v", "mae_t": "t"}.get(top)
     if "audio" in top:
@@ -242,6 +251,7 @@ def make_joint_train_step(model, cfg, spec: optim.OptimizerSpec):
 
     def step(state: TrainState, batch, lr, batch_index, epoch=0):
         del batch_index
+        model.train()
         valid, label = batch["valid"], batch["label"]
         n_total = torch.clamp(torch.sum(valid), min=1.0)
 
@@ -321,6 +331,7 @@ def make_qmf_train_step(model, cfg, spec: optim.OptimizerSpec):
 
     def step(state: TrainState, batch, lr, batch_index, epoch=0):
         del batch_index, epoch
+        model.train()
         valid, label = batch["valid"], batch["label"]
         idx = batch["idx"].long()
         n_valid = torch.sum(valid)

@@ -89,12 +89,12 @@ def test_other_families_raise():
     from mla_tpu_torch.models.classifiers import build_classifier
     from mla_tpu_torch.models.convert import state_dict_from_jax
 
-    for kw in (dict(dataset="CREMAD", lorb="base"),
-               dict(dataset="CREMAD", lorb="large"),
+    for kw in (dict(dataset="CREMAD", lorb="large"),
                dict(dataset="Food101", clip=True),
                dict(dataset="IEMOCAP", lorb="m3ae", modal3=True)):
         cfg = MLAConfig(**kw).validate()
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_classifier(cfg)
     with pytest.raises(NotImplementedError):
-        state_dict_from_jax({}, MLAConfig(dataset="CREMAD").validate())
+        state_dict_from_jax({}, MLAConfig(dataset="CREMAD",
+                                          lorb="large").validate())

@@ -196,3 +196,205 @@ def test_mla_step_on_cuda_launches_each_kernel_per_block():
     for n, p in state.params.items():
         assert p.dtype == torch.float32 and p.is_cuda, n
         assert bool(torch.isfinite(p).all()), n
+
+
+# --------------------------------------------------------------- B3 conv3x3
+# Tolerances: fp32 atol 1e-5 + rtol 1e-5 (exact fp32 products, sums over
+# 9*C terms taken in another order than cuDNN's); bf16 atol 1e-2 + rtol 1e-2,
+# one bf16 ulp of the output (both accumulate exact products in fp32 and
+# round once; a sum near a rounding boundary may round the other way).
+CONV_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)}
+
+
+def _conv_inputs(torch, b, c, h, w, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, c, h, w)).astype(np.float32)
+    wt = (rng.standard_normal((c, c, 3, 3)) / np.sqrt(9 * c)).astype(
+        np.float32)
+    x = torch.from_numpy(x).to("cuda", dtype).contiguous(
+        memory_format=torch.channels_last)
+    return x, torch.from_numpy(wt).to("cuda", dtype)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,c,h,w", [(2, 64, 9, 10), (3, 64, 33, 157),
+                                     (2, 128, 17, 79), (2, 256, 5, 6),
+                                     (2, 512, 5, 20), (3, 64, 1, 1),
+                                     (1, 128, 2, 3)])
+def test_conv3x3_kernel_matches_plain(b, c, h, w, dtype_name):
+    torch = _cuda()
+    from mla_tpu_torch.device import set_matmul_precision
+    from mla_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_reference
+
+    set_matmul_precision()
+    x, wt = _conv_inputs(torch, b, c, h, w, getattr(torch, dtype_name))
+    before = conv3x3.launches
+    got = conv3x3(x, wt)
+    torch.cuda.synchronize()
+    assert conv3x3.launches == before + 1
+    assert got.dtype == x.dtype and got.shape == x.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    want = conv3x3_reference(x, wt).float()
+    atol, rtol = CONV_TOL[dtype_name]
+    diff = (got.float() - want).abs()
+    assert bool(torch.all(diff <= atol + rtol * want.abs())), \
+        diff.max().item()
+
+
+def test_conv3x3_backward_on_cuda_matches_cpu():
+    """dx through Conv3x3 on the card (the kernel on the rotated weight)
+    and dw (PyTorch's weight-gradient) against the CPU's autograd of
+    F.conv2d, fp32 (atol 1e-4 + rtol 1e-4: dw sums 2*9*9 pixels x taps)."""
+    torch = _cuda()
+    from mla_tpu_torch.device import set_matmul_precision
+    from mla_tpu_torch.ops.conv3x3 import Conv3x3, conv3x3
+
+    set_matmul_precision()
+    x, wt = _conv_inputs(torch, 2, 64, 9, 9, torch.float32, seed=4)
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 64, 9, 9)).astype(np.float32))
+    xc, wc = x.cpu().requires_grad_(), wt.cpu().requires_grad_()
+    want = torch.autograd.grad(
+        torch.nn.functional.conv2d(xc, wc, padding=1), (xc, wc), g)
+    x.requires_grad_()
+    wt.requires_grad_()
+    before = conv3x3.launches
+    got = torch.autograd.grad(Conv3x3.apply(x, wt), (x, wt), g.cuda())
+    torch.cuda.synchronize()
+    assert conv3x3.launches == before + 2          # forward and dx
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4,
+                                   rtol=1e-4)
+
+
+def test_conv3x3_rejects_what_it_cannot_launch():
+    torch = _cuda()
+    from mla_tpu_torch.ops.conv3x3 import conv3x3
+
+    x = torch.zeros(1, 64, 4, 4, device="cuda")
+    w = torch.zeros(64, 64, 3, 3, device="cuda")
+    with pytest.raises(ValueError, match="channels_last"):
+        conv3x3(x, w)
+    with pytest.raises(ValueError, match="C in"):
+        conv3x3(torch.zeros(1, 32, 4, 4, device="cuda"),
+                torch.zeros(32, 32, 3, 3, device="cuda"))
+    with pytest.raises(TypeError):
+        conv3x3(x.half(), w)
+
+
+def _av_batch(torch, b, seed=0, t=2, side=32):
+    rng = np.random.default_rng(seed)
+    batch = {"spec": rng.standard_normal((b, 1, 33, 40)).astype(np.float32),
+             "image": rng.standard_normal((b, 3, t, side, side)).astype(
+                 np.float32),
+             "label": rng.integers(0, 6, b), "valid": np.ones(b, np.float32)}
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+
+def test_av_mla_step_on_cuda_launches_b3_per_site():
+    """One debug AV MLA step on the card (stages 1,1,1,1: 5 B3 sites per
+    ResNet; fp32 master weights, bf16 compute, --pallas_conv on): each
+    sub-step runs its sites forward and dx, 20 launches; an eval batch 10
+    and no running statistic moves; losses, parameters and statistics stay
+    finite."""
+    torch = _cuda()
+    from mla_tpu_torch.core.config import MLAConfig
+    from mla_tpu_torch.evals.metrics import make_eval_step
+    from mla_tpu_torch.models.classifiers import build_classifier
+    from mla_tpu_torch.ops.conv3x3 import conv3x3
+    from mla_tpu_torch.train import optim
+    from mla_tpu_torch.train.state import create_train_state
+    from mla_tpu_torch.train.steps import make_train_step
+
+    cfg = MLAConfig(dataset="CREMAD", lorb="base", gs_flag=True,
+                    pallas_conv="on", resnet_stages=(1, 1, 1, 1),
+                    batch_size=4).validate()
+    model = build_classifier(cfg, seed=0)
+    spec = optim.make_spec(cfg)
+    state = create_train_state(model, cfg, spec, seed=0)
+    batch = _av_batch(torch, 4)
+    before = conv3x3.launches
+    state, metrics = make_train_step(model, cfg, spec, len_dl=10)(
+        state, batch, 0.01, 0)
+    torch.cuda.synchronize()
+    assert conv3x3.launches - before == 20
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    stats = {n: t.clone() for n, t in model.named_buffers()}
+    before = conv3x3.launches
+    make_eval_step(model, cfg)(batch)
+    assert conv3x3.launches - before == 10
+    assert all(torch.equal(t, stats[n]) for n, t in model.named_buffers())
+    for n, p in state.params.items():
+        assert p.dtype == torch.float32 and p.is_cuda, n
+        assert bool(torch.isfinite(p).all()), n
+    for n, t in model.named_buffers():
+        assert t.is_cuda and bool(torch.isfinite(t.float()).all()), n
+
+
+def test_av_step_on_cuda_matches_cpu_fp32():
+    """A debug AV MLA step in fp32 on the card (B3 and cuDNN) against the
+    CPU (plain versions): running statistics and losses come from the
+    forward (1e-5 relative); parameters 1e-6 relative L2; momentum 1e-2
+    relative L2, since a ReLU input within rounding of 0 may take either
+    side (see tests/test_torch_port_train_av.py)."""
+    torch = _cuda()
+    from mla_tpu_torch.core.config import MLAConfig
+    from mla_tpu_torch.models.classifiers import build_classifier
+    from mla_tpu_torch.train import optim
+    from mla_tpu_torch.train.state import create_train_state
+    from mla_tpu_torch.train.steps import make_train_step
+
+    cfg = MLAConfig(dataset="CREMAD", lorb="base", gs_flag=True,
+                    pallas_conv="on", resnet_stages=(1, 1, 1, 1),
+                    batch_size=4, compute_dtype="float32").validate()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = build_classifier(cfg, seed=2)
+        spec = optim.make_spec(cfg)
+        st = create_train_state(model, cfg, spec, seed=2, device=dev)
+        batch = {k: v.to(dev) for k, v in _av_batch(torch, 4, 3).items()}
+        st, met = make_train_step(model, cfg, spec, len_dl=1)(st, batch,
+                                                              0.01, 0)
+        out[dev] = ({n: p.detach().cpu() for n, p in st.params.items()},
+                    {n: m.cpu() for n, m in st.opt_state["momentum"].items()},
+                    {n: t.cpu() for n, t in model.named_buffers()
+                     if n.endswith(("mean", "var"))},
+                    {k: float(v) for k, v in met.items()})
+
+    def rel(a, b):
+        num = sum(float(torch.sum((a[n] - b[n]) ** 2)) for n in b)
+        return (num / sum(float(torch.sum(b[n] ** 2)) for n in b)) ** 0.5
+
+    (pg, mg, sg, lg), (pc, mc, sc, lc) = out["cuda"], out["cpu"]
+    assert rel(sg, sc) <= 1e-5
+    assert rel(pg, pc) <= 1e-6
+    assert rel(mg, mc) <= 1e-2
+    for k in lc:
+        assert abs(lg[k] - lc[k]) <= 1e-5 * abs(lc[k]), k
+
+
+def test_av_serving_on_cuda_is_eval_mode(tmp_path):
+    """A serving dispatch of the AV family runs BatchNorm on its running
+    statistics (26 launches at full depth would be 10 here) and changes
+    none of them."""
+    torch = _cuda()
+    from mla_tpu_torch.core.config import MLAConfig
+    from mla_tpu_torch.models.classifiers import build_classifier
+    from mla_tpu_torch.ops.conv3x3 import conv3x3
+    from mla_tpu_torch.runtime.export import export_serving, load_serving
+
+    cfg = MLAConfig(dataset="CREMAD", lorb="base", gs_flag=True,
+                    dynamic=True, pallas_conv="on",
+                    resnet_stages=(1, 1, 1, 1)).validate()
+    batch = {k: v.cpu().numpy() for k, v in _av_batch(torch, 3).items()}
+    art = export_serving(cfg, build_classifier(cfg, seed=0),
+                         str(tmp_path / "av"), batch_sizes=(1, 4),
+                         example_batch=batch)
+    srv = load_serving(art)
+    stats = {n: t.clone() for n, t in srv.model.named_buffers()}
+    before = conv3x3.launches
+    out = srv({k: batch[k] for k in ("spec", "image")})
+    torch.cuda.synchronize()
+    assert conv3x3.launches - before == 10 and not srv.model.training
+    assert all(torch.equal(t, stats[n]) for n, t in srv.model.named_buffers())
+    assert out["fused"].shape == (3, 6) and np.isfinite(out["fused"]).all()
