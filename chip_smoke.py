@@ -58,6 +58,26 @@ result line:
               MLA step at B=2 on the card against the CPU (parameters,
               momentum, losses and BatchNorm running statistics).
 
+8. int8 serving — the base M3AE classifier of phase 4 (same seeded weights)
+              exported three more ways: --export_dtype int8 (unrolled),
+              int8 --scan_blocks and int8_a8 --scan_blocks (calibrated on an
+              example batch), plus a bfloat16 artifact as the yardstick. Each
+              serves n = 1, 3, 64 through run_batch and one HTTP request;
+              per dispatch B4 runs 97 times unrolled (4 sites x 12 blocks x
+              2 encoders + the image projection), and in the stacked layout
+              B4 once, B5 48 times and B6 24 times (a skipped W8A8 MLP site
+              turns the 24 B6 launches into 48 more B5), B1f 24 times.
+              Fused logits against the bf16 artifact's, the card against
+              the CPU (plain versions, bf16 compute) on one n=3 request,
+              latency, rows/s, peak memory, artifact bytes against fp32.
+
+Phase 3 also holds the int8 kernels against their plain versions: B4 and
+B5 (weight-only and W8A8) at the four block sites of the base width (qkv
+768x2304, proj 768x768, fc1 768x3072, fc2 3072x768) and the image
+projection, at 257 and 16448 rows (rungs 1 and 64); B5 at layers 0, 11 and
+an out-of-range id (= 11); B6 at 257 and 16448 rows with the chooser's
+W8A8 group width.
+
 Each path's launch counters are set to 0 just before it runs and read just
 after. The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -67,6 +87,7 @@ from __future__ import annotations
 
 import io
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -86,7 +107,8 @@ OUT_DIR = ROOT / "chiprun_out"
 # H100 SXM published peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense tensor cores
-              torch.float32: 67e12}     # FP32 outside the tensor cores
+              torch.float32: 67e12,     # FP32 outside the tensor cores
+              torch.int8: 1979e12}      # dense int8 tensor cores (ops/s)
 
 # bf16: the probabilities round to bf16 at another point of the online
 # softmax, and outputs round to bf16 (1 ulp = 2^-7 relative)
@@ -137,7 +159,8 @@ def time_cuda(fn, reps: int) -> float:
 
 # ---------------------------------------------------------------- phase 2
 
-KERNEL_SOURCES = ("flat_attention", "flat_attention_bwd", "conv3x3")
+KERNEL_SOURCES = ("flat_attention", "flat_attention_bwd", "conv3x3",
+                  "q8_matmul", "q8_mlp")
 
 
 def phase_build():
@@ -383,6 +406,161 @@ def phase_conv_kernels():
     bad = [r for r in rows + dx_rows if not r["ok"]]
     check(not bad, f"conv3x3 kernel disagrees with its plain version: {bad}")
     return rows, dx_rows
+
+
+# the int8 kernels: B4 and B5 at the base block sites (K, N) and the image
+# projection, at rungs 1 and 64 of the base M3AE (B x 257 token rows)
+Q8_SITES = {"qkv": (768, 2304), "proj": (768, 768), "fc1": (768, 3072),
+            "fc2": (3072, 768), "image": (768, 768)}
+Q8_ROWS = (257, 16448)
+# one bf16 ulp of the larger output (2^-7 relative): weight-only sums of
+# exact products in fp32 in another order may round the other way, plus an
+# absolute 3e-5 for the tensor cores' fp32 accumulation, which truncates at
+# each 16-deep mma step (measured 1.4e-6 on outputs of |y| ~ 1e-5 that
+# cancel at K = 3072); W8A8 sums are exact int32 on both sides; B6's
+# weight-only hidden is bf16 and may round the other way (absolute 1e-3)
+ULP = 2.0 ** -7
+Q8_ATOL = {False: 3e-5, True: 1e-6}     # by a8
+
+
+def q8_weight(rng, *shape):
+    """An int8 (..., N, K) weight and its fp32 (..., N) scales, per output
+    channel as runtime/export.py:quantize_int8 makes them."""
+    w = rng.standard_normal(shape).astype(np.float32) / np.sqrt(shape[-1])
+    amax = np.abs(w).max(axis=-1, keepdims=True)
+    sc = np.maximum(amax / 127.0, 1e-12).astype(np.float32)
+    q = np.clip(np.round(w / sc), -127, 127).astype(np.int8)
+    return torch.from_numpy(q).cuda(), torch.from_numpy(sc[..., 0]).cuda()
+
+
+def ulp_err(got, want, atol):
+    """(max |got - want|, whether each is within atol + 1 ulp)."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    big = torch.maximum(got.abs(), want.abs())
+    return float(diff.max()), bool(torch.all(diff <= atol + ULP * big))
+
+
+def bound(nbytes, ops, peak):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def q8_gemm_case(site, m, a8, stacked, seed, reps=20):
+    """B4 (or B5 on a 12-layer stack, at layers 0, 11 and 99 = 11) against
+    the plain version; times of the kernel, the plain version and a library
+    call (weight-only: dequantize + torch.matmul; W8A8: torch._int_mm)."""
+    from mla_tpu_torch.ops.q8_matmul import (q8_matmul, q8_matmul_plain,
+                                             q8_matmul_stacked,
+                                             quantize_rows)
+    k, n = Q8_SITES[site]
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    w, sc = q8_weight(rng, *((12, n, k) if stacked else (n, k)))
+    if stacked:
+        ids = {i: torch.tensor(i, dtype=torch.int32, device="cuda")
+               for i in (0, 11, 99)}
+        errs = []
+        for i, li in ((0, 0), (11, 11), (99, 11)):
+            got = q8_matmul_stacked(x, w, sc, ids[i], a8)
+            torch.cuda.synchronize()
+            errs.append(ulp_err(got, q8_matmul_plain(x, w[li], sc[li], a8),
+                                Q8_ATOL[a8]))
+        w11, s11 = w[11], sc[11]
+        kernel = lambda: q8_matmul_stacked(x, w, sc, ids[11], a8)  # noqa: E731
+    else:
+        got = q8_matmul(x, w, sc, a8)
+        torch.cuda.synchronize()
+        errs = [ulp_err(got, q8_matmul_plain(x, w, sc, a8), Q8_ATOL[a8])]
+        w11, s11 = w, sc
+        kernel = lambda: q8_matmul(x, w, sc, a8)  # noqa: E731
+    if a8:
+        xq, _ = quantize_rows(x)
+        wt = w11.t()
+        library = lambda: torch._int_mm(xq, wt)  # noqa: E731
+    else:
+        library = lambda: x @ (w11.to(torch.bfloat16)  # noqa: E731
+                               * s11.to(torch.bfloat16)[:, None]).t()
+    try:
+        lib_ms = time_cuda(library, reps)
+    except RuntimeError as e:        # a yardstick only: record, go on
+        lib_ms, lib_err = None, str(e)[:120]
+    else:
+        lib_err = None
+    row = {"site": site, "rows": m, "k": k, "n": n, "a8": a8,
+           "stacked": stacked, "max_abs_err": max(e[0] for e in errs),
+           "ok": all(e[1] for e in errs),
+           "ms": time_cuda(kernel, reps),
+           "plain_ms": time_cuda(
+               lambda: q8_matmul_plain(x, w11, s11, a8), max(reps // 4, 3)),
+           "library_ms": lib_ms, "library_error": lib_err,
+           **bound(2 * m * k + n * k + 4 * n + 2 * m * n, 2 * m * n * k,
+                   PEAK_FLOPS[torch.int8 if a8 else torch.bfloat16])}
+    row["tops"] = 2 * m * n * k / row["ms"] / 1e9
+    name = "q8_matmul_stacked" if stacked else "q8_matmul"
+    print(f"[kernel] {name} " + json.dumps(row), flush=True)
+    return row
+
+
+def q8_mlp_case(m, a8, seed, reps=10):
+    """B6 on layer 5 of 12-layer base-width stacks (and id 99 = 11) against
+    the plain version; the library call is the unfused pair on dequantized
+    bf16 weights with F.gelu between."""
+    import torch.nn.functional as F
+    from mla_tpu_torch.ops.q8_matmul import (mlp_group_width, q8_mlp_plain,
+                                             q8_mlp_stacked)
+    c, h = 768, 3072
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((m, c)).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    w1, s1 = q8_weight(rng, 12, h, c)
+    w2, s2 = q8_weight(rng, 12, c, h)
+    b1 = torch.from_numpy(rng.standard_normal(h).astype(np.float32) * 0.1).to(
+        "cuda", torch.bfloat16)
+    b2 = torch.from_numpy(rng.standard_normal(c).astype(np.float32) * 0.1).to(
+        "cuda", torch.bfloat16)
+    errs = []
+    for i, li in ((5, 5), (99, 11)):
+        lid = torch.tensor(i, dtype=torch.int32, device="cuda")
+        got = q8_mlp_stacked(x, w1, s1, b1, w2, s2, b2, lid, a8)
+        torch.cuda.synchronize()
+        errs.append(ulp_err(got, q8_mlp_plain(x, w1, s1, b1, w2, s2, b2, li,
+                                              a8), 1e-6 if a8 else 1e-3))
+    lid = torch.tensor(5, dtype=torch.int32, device="cuda")
+    d1 = (w1[5].to(torch.bfloat16) * s1[5].to(torch.bfloat16)[:, None])
+    d2 = (w2[5].to(torch.bfloat16) * s2[5].to(torch.bfloat16)[:, None])
+    row = {"rows": m, "c": c, "h": h, "a8": a8,
+           "group_width": mlp_group_width(m, c, h) if a8 else None,
+           "max_abs_err": max(e[0] for e in errs),
+           "ok": all(e[1] for e in errs),
+           "ms": time_cuda(lambda: q8_mlp_stacked(x, w1, s1, b1, w2, s2, b2,
+                                                  lid, a8), reps),
+           "plain_ms": time_cuda(lambda: q8_mlp_plain(
+               x, w1, s1, b1, w2, s2, b2, 5, a8), 3),
+           "library_ms": time_cuda(lambda: F.linear(F.gelu(F.linear(
+               x, d1, b1)), d2, b2), reps),
+           **bound(4 * m * c + 2 * c * h + 6 * (c + h), 4 * m * c * h,
+                   PEAK_FLOPS[torch.int8 if a8 else torch.bfloat16])}
+    row["tops"] = 4 * m * c * h / row["ms"] / 1e9
+    print("[kernel] q8_mlp_stacked " + json.dumps(row), flush=True)
+    return row
+
+
+def phase_q8_kernels():
+    gemm, mlp = [], []
+    for a8 in (False, True):
+        for m in Q8_ROWS:
+            for i, site in enumerate(Q8_SITES):
+                rows = m // 257 * 256 if site == "image" else m  # patches
+                gemm.append(q8_gemm_case(site, rows, a8, False, seed=i))
+                if site in ("qkv", "proj"):
+                    gemm.append(q8_gemm_case(site, m, a8, True, seed=10 + i))
+            mlp.append(q8_mlp_case(m, a8, seed=m))
+    bad = [r for r in gemm + mlp if not r["ok"]]
+    check(not bad, f"int8 kernels disagree with their plain versions: {bad}")
+    return gemm, mlp
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1088,6 +1266,173 @@ def av_cpu_agreement():
     return res
 
 
+# ---------------------------------------------------------------- phase 8
+
+# bounds on the int8 artifacts' fused logits against the bf16 artifact's
+# from the same weights (n = 64): relative L2 (weight-only int8 rounds each
+# weight to 1/254 of its channel's range; W8A8 also each activation row),
+# and the share of rows whose argmax agrees (101 classes of random-weight
+# logits lie close together). The upper edges of what was predicted before
+# the first run: tight enough that a wrong route (a wrong W8A8 group width,
+# a site's switch set wrongly) fails here, not only in the kernel rows.
+INT8_REL_L2 = {"int8": 0.03, "int8_a8": 0.05}
+INT8_ARGMAX_AGREE = 0.9
+
+
+def q8_path_kernels():
+    """The wrappers an int8 M3AE dispatch launches, by kernel."""
+    from mla_tpu_torch.ops.attention import flash_attention_flat
+    from mla_tpu_torch.ops.q8_matmul import (q8_matmul, q8_matmul_stacked,
+                                             q8_mlp_stacked)
+    return {"B4": q8_matmul, "B5": q8_matmul_stacked, "B6": q8_mlp_stacked,
+            "B1f": flash_attention_flat}
+
+
+def q8_counts():
+    return {k: fn.launches for k, fn in q8_path_kernels().items()}
+
+
+def zero_q8_counts():
+    for fn in q8_path_kernels().values():
+        fn.launches = 0
+
+
+def per_dispatch(meta) -> dict:
+    """Launches of one dispatch of a base int8 artifact (module notes)."""
+    if not meta["config"]["scan_blocks"]:
+        return {"B4": 97, "B5": 0, "B6": 0, "B1f": 24}
+    mlp_skipped = {"mlp/fc1", "mlp/fc2"} & set(meta["a8_skip"])
+    if meta["weights_dtype"] == "int8_a8" and mlp_skipped:
+        return {"B4": 1, "B5": 96, "B6": 0, "B1f": 24}
+    return {"B4": 1, "B5": 48, "B6": 24, "B1f": 24}
+
+
+def delta(before):
+    now = q8_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def phase_int8_serving(work: Path):
+    from mla_tpu_torch.core.config import MLAConfig
+    from mla_tpu_torch.models.classifiers import build_classifier
+    from mla_tpu_torch.runtime.export import export_serving, load_serving
+    from mla_tpu_torch.runtime.serve import make_server, run_batch
+
+    t0 = time.perf_counter()
+    cfgs = {scan: MLAConfig(dataset="Food101", lorb="m3ae", gs_flag=True,
+                            dynamic=True, m3ae_size="base",
+                            scan_blocks=scan).validate()
+            for scan in (False, True)}
+    model = build_classifier(cfgs[False], seed=0)      # phase 4's weights
+    fp32_bytes = sum(t.numel() * t.element_size()
+                     for t in model.state_dict().values())
+    example = request(np.random.default_rng(5), 4)
+    arts = {"bfloat16": export_serving(
+        cfgs[False], model, str(work / "q8_bf16"), weights_dtype="bfloat16",
+        example_batch=example)}
+    for kind, dtype, scan in (("int8", "int8", False),
+                              ("int8_scan", "int8", True),
+                              ("int8_a8_scan", "int8_a8", True)):
+        arts[kind] = export_serving(cfgs[scan], model, str(work / kind),
+                                    weights_dtype=dtype,
+                                    example_batch=example)
+    del model
+    print(f"[int8] exported the base M3AE four ways (int8_a8 calibrated on "
+          f"the card) in {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(0)
+    reqs = {n: request(rng, n) for n in (1, 3, 64)}
+    bf = load_serving(arts["bfloat16"])
+    ref64 = run_batch(bf, reqs[64])["fused"]
+    del bf
+    torch.cuda.empty_cache()
+    out = {"fp32_bytes": fp32_bytes}
+    for kind in ("int8", "int8_scan", "int8_a8_scan"):
+        torch.cuda.reset_peak_memory_stats()
+        srv = load_serving(arts[kind])               # cuda, bf16 compute
+        meta = srv.meta
+        want = per_dispatch(meta)
+        dispatches, rungs = 0, {}
+        # -- the main path: counters 0 just before, read just after -------
+        zero_q8_counts()
+        for n, feats in reqs.items():
+            times = []
+            for i in range(12):                   # 2 warm-up + 10 timed
+                before = q8_counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res = run_batch(srv, feats)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t
+                dispatches += 1
+                got = delta(before)
+                check(got == want, f"{kind} n={n}: launches {got} in one "
+                                   f"dispatch, expected {want}")
+                if i >= 2:
+                    times.append(dt)
+            check_logits(res, n, f"{kind} n={n}")
+            med = float(np.median(times)) * 1e3
+            rungs[n] = {"rung": srv._rung(n), "median_ms": med,
+                        "min_ms": float(np.min(times)) * 1e3,
+                        "rows_per_s": n / med * 1e3, "reps": len(times)}
+            if n == 64:
+                fused64 = res["fused"]
+        httpd = make_server(srv, port=0)
+        th = threading.Thread(target=httpd.serve_forever, daemon=True)
+        th.start()
+        try:
+            before = q8_counts()
+            res = post(f"http://127.0.0.1:{httpd.server_address[1]}",
+                       {k: v[:2] for k, v in reqs[3].items()})
+            check_logits(res, 2, f"{kind} HTTP")
+            check(delta(before) == want, f"{kind} HTTP: launches "
+                                         f"{delta(before)}")
+            dispatches += 1
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            th.join(timeout=30)
+        launches = q8_counts()
+        # -- end of the main path -----------------------------------------
+        peak = torch.cuda.max_memory_allocated()
+        check(all(launches[k] == want[k] * dispatches for k in want),
+              f"{kind}: {launches} launches over {dispatches} dispatches")
+        rel = float(np.linalg.norm(fused64 - ref64) / np.linalg.norm(ref64))
+        agree = float(np.mean(np.argmax(fused64, 1) == np.argmax(ref64, 1)))
+        dtype = meta["weights_dtype"]
+        profiles = {n: profile_call(lambda n=n: srv(reqs[n])) for n in (1, 64)}
+        card3 = srv(reqs[3])
+        del srv
+        torch.cuda.empty_cache()
+        cpu3 = load_serving(arts[kind], device="cpu",
+                            compute_dtype="bfloat16")(reqs[3])
+        rel_cpu = {k: float(np.linalg.norm(card3[k] - cpu3[k])
+                            / np.linalg.norm(cpu3[k])) for k in cpu3}
+        art_bytes = os.path.getsize(os.path.join(arts[kind], "weights.pt"))
+        res = {"weights_dtype": dtype, "scan_blocks":
+               meta["config"]["scan_blocks"], "a8_skip": meta["a8_skip"],
+               "a8_site_rel_err": meta["a8_site_rel_err"],
+               "per_dispatch": want, "dispatches": dispatches,
+               "launches": launches, "rungs": rungs, "peak_bytes": peak,
+               "rel_l2_vs_bf16": rel, "argmax_agree_vs_bf16": agree,
+               "rel_l2_card_vs_cpu": rel_cpu, "artifact_bytes": art_bytes,
+               "bytes_vs_fp32": art_bytes / fp32_bytes, "profiles": profiles}
+        out[kind] = res
+        print(f"[int8] {kind}: " + json.dumps(
+            {k: v for k, v in res.items() if k != "profiles"}), flush=True)
+        for n, p in profiles.items():
+            print(f"[trace] {kind} n={n}: wall {p['wall_ms']:.2f} ms, device "
+                  f"busy {p['device_ms']:.2f} ms ({100 * p['busy_share']:.1f}"
+                  f"%); top: " + json.dumps(p["top"][:8]), flush=True)
+        check(rel <= INT8_REL_L2[dtype] and agree >= INT8_ARGMAX_AGREE,
+              f"{kind} logits drift from the bf16 artifact's: relative L2 "
+              f"{rel}, argmax agreement {agree}")
+        # bf16 compute on both sides: kernels against plain versions, and
+        # the attention's bf16 rounding (phase 4's tolerance)
+        check(all(v <= 3e-2 for v in rel_cpu.values()),
+              f"{kind}: the card drifts from the CPU: {rel_cpu}")
+    return out
+
+
 # ---------------------------------------------------------------- main
 
 def main():
@@ -1105,6 +1450,7 @@ def main():
     build_s = phase_build()
     rows, bwd_rows = phase_kernels()
     conv_rows, conv_dx_rows = phase_conv_kernels()
+    q8_rows, mlp_rows = phase_q8_kernels()
     (ROOT / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "build"))
     try:
@@ -1114,6 +1460,11 @@ def main():
         shutil.rmtree(work, ignore_errors=True)
     training = phase_training()
     av_training = phase_av_training()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "build"))
+    try:
+        int8 = phase_int8_serving(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     def main_shape(rs):
         return next(r for r in rs if r["shape"] == [64, 257, 12, 64]
@@ -1161,13 +1512,53 @@ def main():
         "bound_by": conv["bound_by"], "library_ms": conv["library_ms"],
         "max_abs_err_all": max(r["max_abs_err"] for r in conv_rows),
         "all_ok": all(r["ok"] for r in conv_rows + conv_dx_rows)})
+    def q8_entry(name, replaces, rows_of, at, launches):
+        """The weight-only row at ``at`` in the main fields, its W8A8 twin
+        under a8_*; every case's error and verdict."""
+        main_ = next(r for r in rows_of if at(r) and not r["a8"])
+        twin = next(r for r in rows_of if at(r) and r["a8"])
+        return {"name": name, "route": "cuda", "source": (
+            "mla_tpu_torch/ops/csrc/q8_mlp.cu" if name == "q8_mlp_stacked"
+            else "mla_tpu_torch/ops/csrc/q8_matmul.cu"),
+                "replaces": replaces, "launches": launches,
+                "at": f"{main_['rows']} rows, weight-only "
+                      f"(a8_*: W8A8)",
+                "max_abs_err": main_["max_abs_err"], "ms": main_["ms"],
+                "plain_ms": main_["plain_ms"], "bound_ms": main_["bound_ms"],
+                "bound_by": main_["bound_by"],
+                "library_ms": main_["library_ms"],
+                "a8_max_abs_err": twin["max_abs_err"], "a8_ms": twin["ms"],
+                "a8_plain_ms": twin["plain_ms"],
+                "a8_bound_ms": twin["bound_ms"],
+                "a8_bound_by": twin["bound_by"],
+                "a8_library_ms": twin["library_ms"],
+                "max_abs_err_all": max(r["max_abs_err"] for r in rows_of),
+                "all_ok": all(r["ok"] for r in rows_of)}
+
+    q8_total = {k: sum(int8[a]["launches"][k] for a in
+                       ("int8", "int8_scan", "int8_a8_scan"))
+                for k in ("B4", "B5", "B6", "B1f")}
+    kernels[0]["launches"] += q8_total["B1f"]
+    b4 = [r for r in q8_rows if not r["stacked"]]
+    b5 = [r for r in q8_rows if r["stacked"]]
+    kernels += [
+        q8_entry("q8_matmul", "mla_tpu/ops/q8_matmul.py:138", b4,
+                 lambda r: r["site"] == "qkv" and r["rows"] == 16448,
+                 q8_total["B4"]),
+        q8_entry("q8_matmul_stacked", "mla_tpu/ops/q8_matmul.py:217", b5,
+                 lambda r: r["site"] == "qkv" and r["rows"] == 16448,
+                 q8_total["B5"]),
+        q8_entry("q8_mlp_stacked", "mla_tpu/ops/q8_matmul.py:435", mlp_rows,
+                 lambda r: r["rows"] == 16448, q8_total["B6"])]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
         "device": smi, "torch": torch.__version__, "build_s": build_s,
         "kernel_cases": rows, "bwd_kernel_cases": bwd_rows,
         "conv_kernel_cases": conv_rows, "conv_dx_cases": conv_dx_rows,
+        "q8_kernel_cases": q8_rows, "q8_mlp_cases": mlp_rows,
         "serving": serving, "training": training,
         "av_serving": av_serving, "av_training": av_training,
+        "int8_serving": int8,
         "seconds": time.perf_counter() - t_start}, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -28,6 +28,8 @@ image (B, 3, T, H, W) float, and under ``--masked_bn`` valid (B,) float.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
@@ -63,13 +65,14 @@ class M3AEClassifier(nn.Module):
 
     def __init__(self, n_classes: int = 101, fusion_method: str = "concat",
                  gs_flag: bool = False, qmf: bool = False,
-                 model_type: str = "base", text_vocab_size: int = 30522):
+                 model_type: str = "base", text_vocab_size: int = 30522,
+                 q8: Optional[str] = None):
         super().__init__()
         self.gs_flag = gs_flag
         self.qmf = qmf
         cfg = M3AEConfig(model_type=model_type, text_vocab_size=text_vocab_size)
-        self.mae_a = M3AEEncoder(cfg)
-        self.mae_v = M3AEEncoder(cfg)
+        self.mae_a = M3AEEncoder(cfg, q8)
+        self.mae_v = M3AEEncoder(cfg, q8)
         if qmf:
             # per-modality QMF heads (the JAX package's _qmf_head with torch
             # nn.Linear's default init, classifiers.py:227-232). The QMF
@@ -222,14 +225,18 @@ def classifier_kwargs(cfg: MLAConfig) -> dict:
     return dict(kw, model_type=cfg.m3ae_size)
 
 
-def make_classifier(cfg: MLAConfig, text_vocab_size: int = 30522) -> nn.Module:
+def make_classifier(cfg: MLAConfig, text_vocab_size: int = 30522,
+                    q8: Optional[str] = None) -> nn.Module:
     """The classifier ``cfg`` selects, on the meta device (no storage): load
-    a state_dict into it with ``assign=True``, or ``to_empty`` it."""
+    a state_dict into it with ``assign=True``, or ``to_empty`` it. ``q8``
+    ("unrolled" or "stacked") builds the M3AE family's int8 serving sites
+    (``models/layers.py``); the AV family has none (an int8 artifact
+    dequantizes its weights at load)."""
     kw = classifier_kwargs(cfg)
     with torch.device("meta"):
         if cfg.lorb == "base":
             return AVClassifier(**kw)
-        return M3AEClassifier(text_vocab_size=text_vocab_size, **kw)
+        return M3AEClassifier(text_vocab_size=text_vocab_size, q8=q8, **kw)
 
 
 def build_classifier(cfg: MLAConfig, seed: int = 0,

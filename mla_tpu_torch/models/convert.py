@@ -7,7 +7,12 @@ arrays) into the reference PyTorch state_dict that the port's modules use
 OIHW; LayerNorm and BatchNorm scale/bias -> weight/bias, and flax
 ``batch_stats`` mean/var -> BatchNorm ``running_mean``/``running_var`` with
 ``num_batches_tracked`` 0; a ``--scan_blocks`` tree's stacked ``blocks`` ->
-per-block entries). ``load_reference_checkpoint`` reads a reference ``saved_dict``
+per-block entries). An int8 tree (``_quantize_int8``'s ``{'q8', 'scale'}``
+nodes, unrolled or stacked) maps the same way: each quantized weight becomes
+its int8 tensor under the weight's name and its fp32 scale under the name
+plus ``_scale``, both in the port's layout (``runtime/export.py:
+quantize_int8`` writes the same dict); ``q8_state_dict`` turns that dict
+into the state_dict of the int8 serving model. ``load_reference_checkpoint`` reads a reference ``saved_dict``
 ``.pth`` (reference main.py:915-927, as written by ``main.py --export_torch``)
 and strips the DataParallel ``module.`` prefix.
 
@@ -27,19 +32,36 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from mla_tpu_torch.models.layers import BLOCK_SITES, block_site
 from mla_tpu_torch.train.gs import GSState
 from mla_tpu_torch.train.state import QMFState
 
 
 def _t(x) -> torch.Tensor:
+    """An array -> a tensor: integers keep their type, floats (bf16
+    included) become float32."""
     a = np.asarray(x)
-    if np.issubdtype(a.dtype, np.floating):
+    if not (np.issubdtype(a.dtype, np.integer) or a.dtype == np.bool_):
         a = a.astype(np.float32)
     return torch.from_numpy(np.ascontiguousarray(a).copy())
 
 
+def _is_q8(node) -> bool:
+    return isinstance(node, Mapping) and set(node) == {"q8", "scale"}
+
+
+def _weight(sd, leaf, name, layout=lambda a: a):
+    """A kernel or table leaf -> ``name`` (in the port's layout, via
+    ``layout``); an int8 node also -> ``name + '_scale'``, laid out alike."""
+    if _is_q8(leaf):
+        sd[name] = _t(layout(np.asarray(leaf["q8"])))
+        sd[name + "_scale"] = _t(layout(np.asarray(leaf["scale"])))
+    else:
+        sd[name] = _t(layout(np.asarray(leaf)))
+
+
 def _linear(sd, node, name):
-    sd[name + ".weight"] = _t(np.asarray(node["kernel"]).T)
+    _weight(sd, node["kernel"], name + ".weight", np.transpose)
     if "bias" in node:
         sd[name + ".bias"] = _t(node["bias"])
 
@@ -50,7 +72,8 @@ def _layer_norm(sd, node, name):
 
 
 def _conv(sd, node, name):
-    sd[name + ".weight"] = _t(np.asarray(node["kernel"]).transpose(3, 2, 0, 1))
+    _weight(sd, node["kernel"], name + ".weight",
+            lambda a: a.transpose(3, 2, 0, 1))
 
 
 # a flax ResNet block's submodules -> the reference BasicBlock's
@@ -126,9 +149,9 @@ def m3ae_state_dict(params: Mapping, prefix: str = "") -> Dict[str, torch.Tensor
     """M3AEEncoder params -> reference models/m3ae.py state_dict names."""
     params = _unstack_blocks(params)
     sd: Dict[str, torch.Tensor] = {}
-    sd[prefix + "text_embedding.weight"] = _t(params["text_embedding"])
-    sd[prefix + "image_embedding.weight"] = _t(
-        np.asarray(params["image_kernel"]).T)
+    _weight(sd, params["text_embedding"], prefix + "text_embedding.weight")
+    _weight(sd, params["image_kernel"], prefix + "image_embedding.weight",
+            np.transpose)
     sd[prefix + "image_embedding.bias"] = _t(params["image_bias"])
     sd[prefix + "cls_token"] = _t(params["cls_token"])
     for t in ("encoder_image_type_embedding", "encoder_text_type_embedding"):
@@ -175,6 +198,44 @@ def state_dict_from_jax(params: Mapping, cfg, batch_stats=None
         if fc in params.get("fusion_module", {}):
             _linear(sd, params["fusion_module"][fc], f"fusion_module.{fc}")
     return sd
+
+
+def q8_state_dict(sd: Mapping[str, torch.Tensor], model: torch.nn.Module
+                  ) -> Dict[str, torch.Tensor]:
+    """An int8 artifact's dict (int8 weights with ``_scale`` entries, block
+    sites per block) -> the state_dict ``model`` loads with ``strict=True``.
+
+    Where the model streams int8 (its tensor of that name is int8: the M3AE
+    block sites, the image-patch projection, the text table) the weight
+    stays int8 and its scale takes the model's shape; in the stacked layout
+    the block sites' weights and scales are stacked over the blocks. Every
+    other quantized weight (heads, the AV family's convs) is dequantized as
+    ``q8.bf16 * scale.bf16`` in bf16 (``split_q8``)."""
+    want = model.state_dict()
+    out: Dict[str, torch.Tensor] = {}
+    stacks: Dict[str, Dict[int, torch.Tensor]] = {}
+    for name, t in sd.items():
+        path, _, leaf = name.rpartition(".")
+        site = block_site(path) if leaf in ("weight", "weight_scale") \
+            else None
+        key = None if site is None else \
+            f"{site[0]}.encoder.stack.{BLOCK_SITES[site[2]][0]}_" \
+            f"{'scale' if leaf == 'weight_scale' else 'weight'}"
+        if key is not None and key in want:
+            stacks.setdefault(key, {})[site[1]] = t
+        elif name.endswith("_scale") and name[:-len("_scale")] in sd:
+            if name in want:
+                out[name] = t.reshape(want[name].shape)
+        elif name + "_scale" in sd and not (name in want and
+                                            want[name].dtype == torch.int8):
+            out[name] = t.to(torch.bfloat16) * sd[name + "_scale"].to(
+                torch.bfloat16)
+        else:
+            out[name] = t
+    for key, layers in stacks.items():
+        out[key] = torch.stack([layers[i] for i in range(len(layers))]
+                               ).reshape(want[key].shape)
+    return out
 
 
 def _tree_f32(tree):

@@ -17,6 +17,14 @@ sin-cos tables and cast once to the compute type; the blocks run in that
 type, casting each parameter per op (``layers.linear``). The compute type is
 ``compute_dtype`` when set (training: fp32 master weights, bf16 compute),
 else the weights' type (serving casts the weights themselves).
+
+int8 serving (``q8`` = "unrolled" or "stacked", ``mla_tpu/models/m3ae.py:
+197-300``): the image-patch projection is an int8 site through B4 (weight
+only, then ``+ bias`` in the compute type and ``+ pos`` in fp32), the text
+table an int8 gather scaled per row in fp32. The stacked layout keeps each
+block site's kernels of all layers in one (L, N, K) stack (``Q8Stack``),
+which B5 and B6 read in place given the layer id; the blocks keep their
+small float parameters.
 """
 
 from __future__ import annotations
@@ -28,7 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mla_tpu_torch.models.layers import (M3AEBlock, layer_norm,
+from mla_tpu_torch.models.layers import (M3AEBlock, Q8Linear, Stacked,
+                                         layer_norm, q8_product,
                                          reset_layer_norm, reset_xavier_linear)
 from mla_tpu_torch.ops.pos_embed import (get_1d_sincos_pos_embed,
                                          get_2d_sincos_pos_embed_square)
@@ -69,30 +78,87 @@ class M3AEConfig:
         return M3AE_CONFIGS[self.model_type][3]
 
 
-class _Transformer(nn.Module):
-    """The reference's ``encoder`` submodule: the block stack + final LN."""
+class Q8Embedding(nn.Module):
+    """An int8 embedding table (V, C) with fp32 per-row scales (V,)."""
+
+    def __init__(self, num: int, dim: int):
+        super().__init__()
+        self.register_buffer("weight", torch.empty((num, dim),
+                                                   dtype=torch.int8))
+        self.register_buffer("weight_scale", torch.empty(num,
+                                                         dtype=torch.float32))
+
+    def forward(self, ids):
+        """(B, L) ids -> (B, L, C) fp32: the gathered int8 rows times their
+        scales; the table never materializes in float."""
+        ids = ids.long()
+        return self.weight[ids].float() * self.weight_scale[ids][..., None]
+
+
+# a block's int8 sites and their (out, in) widths by emb_dim C, ratio r
+_Q8_SITES = {"qkv": lambda c, r: (3 * c, c), "proj": lambda c, r: (c, c),
+             "fc1": lambda c, r: (r * c, c), "fc2": lambda c, r: (c, r * c)}
+
+
+class Q8Stack(nn.Module):
+    """The stacked int8 layout's kernels: per block site an (L, N, K) int8
+    stack ``<site>_weight`` and its (L, N) fp32 scales ``<site>_scale``."""
 
     def __init__(self, c: M3AEConfig):
         super().__init__()
+        for site, shape in _Q8_SITES.items():
+            n, k = shape(c.emb_dim, c.mlp_ratio)
+            self.register_buffer(f"{site}_weight", torch.empty(
+                (c.depth, n, k), dtype=torch.int8))
+            self.register_buffer(f"{site}_scale", torch.empty(
+                (c.depth, n), dtype=torch.float32))
+        self._ids: Dict[torch.device, torch.Tensor] = {}
+
+    def layer(self, i: int) -> Dict[str, Stacked]:
+        """Block ``i``'s view of the stacks: {site: (stack, scales, id)},
+        the id an int32 scalar on the stacks' device (made once per
+        device), so the kernels read the layer without a host copy."""
+        dev = self.qkv_weight.device
+        ids = self._ids.get(dev)
+        if ids is None:
+            ids = self._ids[dev] = torch.arange(
+                self.qkv_weight.shape[0], dtype=torch.int32, device=dev)
+        return {site: (getattr(self, f"{site}_weight"),
+                       getattr(self, f"{site}_scale"), ids[i])
+                for site in _Q8_SITES}
+
+
+class _Transformer(nn.Module):
+    """The reference's ``encoder`` submodule: the block stack + final LN
+    (and, in the stacked int8 layout, the blocks' int8 kernels)."""
+
+    def __init__(self, c: M3AEConfig, q8: Optional[str] = None):
+        super().__init__()
         self.blocks = nn.ModuleList(
-            M3AEBlock(c.emb_dim, c.num_heads, c.mlp_ratio)
+            M3AEBlock(c.emb_dim, c.num_heads, c.mlp_ratio, q8)
             for _ in range(c.depth))
         self.layer_norm = nn.LayerNorm(c.emb_dim, eps=1e-5)
+        self.stack = Q8Stack(c) if q8 == "stacked" else None
 
 
 class M3AEEncoder(nn.Module):
-    def __init__(self, config: M3AEConfig = M3AEConfig()):
+    def __init__(self, config: M3AEConfig = M3AEConfig(),
+                 q8: Optional[str] = None):
         super().__init__()
         c = self.config = config
-        self.text_embedding = nn.Embedding(c.text_vocab_size, c.emb_dim)
-        self.image_embedding = nn.Linear(PATCH_DIM, c.emb_dim)
+        if q8 is None:
+            self.text_embedding = nn.Embedding(c.text_vocab_size, c.emb_dim)
+            self.image_embedding = nn.Linear(PATCH_DIM, c.emb_dim)
+        else:
+            self.text_embedding = Q8Embedding(c.text_vocab_size, c.emb_dim)
+            self.image_embedding = Q8Linear(PATCH_DIM, c.emb_dim)
         self.cls_token = nn.Parameter(torch.empty(1, 1, c.emb_dim))
         if c.use_type_embedding:
             self.encoder_image_type_embedding = nn.Parameter(
                 torch.empty(1, 1, c.emb_dim))
             self.encoder_text_type_embedding = nn.Parameter(
                 torch.empty(1, 1, c.emb_dim))
-        self.encoder = _Transformer(c)
+        self.encoder = _Transformer(c, q8)
         # None: the weights' type (see the module docstring)
         self.compute_dtype: Optional[torch.dtype] = None
         # sin-cos tables by (kind, length, device): constants, not weights
@@ -130,8 +196,9 @@ class M3AEEncoder(nn.Module):
         text_padding_mask: (B, L) float, 1 = padded
         returns (B, 1 + N_img + L, emb_dim) token features."""
         x, padding_mask = self.embed(image, text, text_padding_mask)
-        for blk in self.encoder.blocks:
-            x = blk(x, padding_mask)
+        stack = self.encoder.stack
+        for i, blk in enumerate(self.encoder.blocks):
+            x = blk(x, padding_mask, None if stack is None else stack.layer(i))
         return self.finalize(x)
 
     def embed(self, image, text, text_padding_mask=None):
@@ -144,7 +211,12 @@ class M3AEEncoder(nn.Module):
         masks = [torch.zeros((batch, 1), dtype=torch.float32, device=dev)]
         if image is not None:
             emb = self.image_embedding
-            proj = F.linear(image.to(dt), emb.weight.to(dt)) + emb.bias.to(dt)
+            if isinstance(emb, Q8Linear):
+                proj = q8_product(image, emb.weight, emb.weight_scale,
+                                  record=emb.record).to(dt)
+            else:
+                proj = F.linear(image.to(dt), emb.weight.to(dt))
+            proj = proj + emb.bias.to(dt)
             x = proj.float() + self._table("image", image.shape[1], dev)
             if c.use_type_embedding:
                 x = x + self.encoder_image_type_embedding.float()
@@ -152,8 +224,11 @@ class M3AEEncoder(nn.Module):
             masks.append(torch.zeros((batch, image.shape[1]),
                                      dtype=torch.float32, device=dev))
         if text is not None:
-            x = (F.embedding(text.long(), self.text_embedding.weight).float()
-                 + self._table("text", text.shape[1], dev))
+            if isinstance(self.text_embedding, Q8Embedding):
+                emb = self.text_embedding(text)
+            else:
+                emb = F.embedding(text.long(), self.text_embedding.weight)
+            x = emb.float() + self._table("text", text.shape[1], dev)
             if c.use_type_embedding:
                 x = x + self.encoder_text_type_embedding.float()
             parts.append(x.to(dt))

@@ -1,6 +1,6 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
+Each ``csrc/<name>.cu`` (with the headers ``csrc/*.cuh``) is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds). Libraries go to ``$MLA_TPU_TORCH_BUILD_DIR`` when it is set, else
 to ``build/mla_tpu_torch/`` in the checkout the package runs from, else (an
@@ -58,7 +58,10 @@ def build_dir() -> Path:
 
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    # the shared headers count too: an edited header rebuilds its users
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
                             ).hexdigest()[:16]
     return build_dir() / f"{name}-{digest}.so"
 

@@ -398,3 +398,128 @@ def test_av_serving_on_cuda_is_eval_mode(tmp_path):
     assert conv3x3.launches - before == 10 and not srv.model.training
     assert all(torch.equal(t, stats[n]) for n, t in srv.model.named_buffers())
     assert out["fused"].shape == (3, 6) and np.isfinite(out["fused"]).all()
+
+
+# ------------------------------------------------ B4, B5, B6 int8 GEMMs, MLP
+# Tolerance: one bf16 ulp of the larger of the two outputs (2^-7 relative;
+# the larger, since a value just below a power of 2 may round up to it):
+# weight-only kernels and plain versions both sum exact bf16 x int8 products
+# in fp32 and round once, in other orders, and the tensor cores' fp32
+# accumulation truncates at each 16-deep step (an absolute 3e-5 covers it
+# on outputs that cancel to |y| ~ 1e-5 at K = 3072); W8A8 sums are exact
+# int32 on both sides (1e-6); the fused MLP's weight-only hidden is bf16
+# and may round the other way (an absolute 1e-3).
+ULP = 2.0 ** -7
+
+
+def _q8_weight(rng, *shape):
+    """A weight quantized per output channel (the last-but-one axis is N,
+    the last K), as runtime/export.py:quantize_int8 does."""
+    w = rng.standard_normal(shape).astype(np.float32) / np.sqrt(shape[-1])
+    amax = np.abs(w).max(axis=-1, keepdims=True)
+    s = np.maximum(amax / 127.0, 1e-12).astype(np.float32)
+    return np.clip(np.round(w / s), -127, 127).astype(np.int8), s[..., 0]
+
+
+def _close(torch, got, want, atol=1e-6):
+    diff = (got.float() - want.float()).abs()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    big = torch.maximum(got.float().abs(), want.float().abs())
+    assert bool(torch.all(diff <= atol + ULP * big)), diff.max().item()
+
+
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("m,k,n", [(257, 768, 2304), (77, 768, 768),
+                                   (300, 3072, 768), (1000, 768, 3072)])
+def test_q8_matmul_kernel_matches_plain(m, k, n, a8):
+    torch = _cuda()
+    from mla_tpu_torch.device import set_matmul_precision
+    from mla_tpu_torch.ops.q8_matmul import q8_matmul, q8_matmul_plain
+
+    set_matmul_precision()
+    rng = np.random.default_rng(m + n)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    q, s = _q8_weight(rng, n, k)
+    w, s = torch.from_numpy(q).cuda(), torch.from_numpy(s).cuda()
+    before = q8_matmul.launches
+    got = q8_matmul(x, w, s, a8=a8)
+    torch.cuda.synchronize()
+    assert q8_matmul.launches == before + 1
+    _close(torch, got, q8_matmul_plain(x, w, s, a8), 1e-6 if a8 else 3e-5)
+
+
+@pytest.mark.parametrize("a8", [False, True])
+def test_q8_matmul_stacked_reads_and_clamps_the_layer(a8):
+    torch = _cuda()
+    from mla_tpu_torch.device import set_matmul_precision
+    from mla_tpu_torch.ops.q8_matmul import (q8_matmul_plain,
+                                             q8_matmul_stacked)
+
+    set_matmul_precision()
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((2, 93, 768)).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    q, s = _q8_weight(rng, 3, 768, 768)
+    w, s = torch.from_numpy(q).cuda(), torch.from_numpy(s).cuda()
+    for layer, want_l in ((0, 0), (2, 2), (7, 2), (-4, 0)):
+        lid = torch.tensor(layer, dtype=torch.int32, device="cuda")
+        before = q8_matmul_stacked.launches
+        got = q8_matmul_stacked(x, w, s, lid, a8=a8)
+        torch.cuda.synchronize()
+        assert q8_matmul_stacked.launches == before + 1
+        assert got.shape == (2, 93, 768)
+        _close(torch, got.reshape(-1, 768),
+               q8_matmul_plain(x.reshape(-1, 768), w[want_l], s[want_l], a8),
+               1e-6 if a8 else 3e-5)
+
+
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("m", [257, 2056, 1001])
+def test_q8_mlp_kernel_matches_plain(m, a8):
+    """B6 on layer 1 of a 2-layer base-width stack (C 768, H 3072) and an
+    out-of-range id; W8A8 with the chooser's group width (1536 at 257 rows,
+    768 at 2056)."""
+    torch = _cuda()
+    from mla_tpu_torch.device import set_matmul_precision
+    from mla_tpu_torch.ops.q8_matmul import (mlp_group_width, q8_mlp_plain,
+                                             q8_mlp_stacked)
+
+    set_matmul_precision()
+    rng = np.random.default_rng(m)
+    x = torch.from_numpy(rng.standard_normal((m, 768)).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    q1, s1 = _q8_weight(rng, 2, 3072, 768)
+    q2, s2 = _q8_weight(rng, 2, 768, 3072)
+    b1 = torch.from_numpy(rng.standard_normal(3072).astype(np.float32) * 0.1
+                          ).to("cuda", torch.bfloat16)
+    b2 = torch.from_numpy(rng.standard_normal(768).astype(np.float32) * 0.1
+                          ).to("cuda", torch.bfloat16)
+    w1, s1, w2, s2 = (torch.from_numpy(a).cuda() for a in (q1, s1, q2, s2))
+    if a8 and m in (257, 2056):
+        assert mlp_group_width(m, 768, 3072) == {257: 1536, 2056: 768}[m]
+    for layer, want_l in ((1, 1), (5, 1)):
+        lid = torch.tensor(layer, dtype=torch.int32, device="cuda")
+        before = q8_mlp_stacked.launches
+        got = q8_mlp_stacked(x, w1, s1, b1, w2, s2, b2, lid, a8=a8)
+        torch.cuda.synchronize()
+        assert q8_mlp_stacked.launches == before + 1
+        want = q8_mlp_plain(x, w1, s1, b1, w2, s2, b2, want_l, a8)
+        _close(torch, got, want, atol=1e-6 if a8 else 1e-3)
+
+
+def test_q8_wrappers_reject_what_they_cannot_launch():
+    torch = _cuda()
+    from mla_tpu_torch.ops.q8_matmul import q8_matmul, q8_matmul_stacked
+
+    x = torch.zeros(4, 96, device="cuda", dtype=torch.bfloat16)
+    w = torch.zeros(128, 96, device="cuda", dtype=torch.int8)
+    s = torch.ones(128, device="cuda")
+    with pytest.raises(ValueError, match="K % 64"):
+        q8_matmul(x, w, s)
+    x64 = torch.zeros(4, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="int8"):
+        q8_matmul(x64, torch.zeros(128, 64, device="cuda"), s)
+    with pytest.raises(ValueError, match="int32 scalar"):
+        q8_matmul_stacked(x64, torch.zeros(1, 128, 64, device="cuda",
+                                           dtype=torch.int8), s[None], 0)

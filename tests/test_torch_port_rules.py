@@ -65,8 +65,8 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     from mla_tpu_torch.core.config import MLAConfig, config_from_args
     from mla_tpu_torch.runtime import export, serve
 
-    # one device knob: the serving entry points' own; the config has none,
-    # so the export CLI (pure CPU serialisation) refuses --device
+    # the device knob belongs to the entry points (serve --device; export
+    # --device, for int8_a8's calibration forward); the config has none
     assert not hasattr(MLAConfig(), "device")
     with pytest.raises(SystemExit):
         config_from_args(["--device", "cpu"])
@@ -74,6 +74,8 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     (tmp_path / "meta.json").write_text("{}")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         export.load_serving(str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        export.calibrate_a8(MLAConfig(), {}, {})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--artifact", str(tmp_path), "--input", "x.npz"])
 
