@@ -71,12 +71,33 @@ result line:
               the CPU (plain versions, bf16 compute) on one n=3 request,
               latency, rows/s, peak memory, artifact bytes against fp32.
 
+9. head-layout training — phase 5's classifier (same seeded weights) with
+              the flat attention kernels off for the whole phase
+              (set_flat_attention(False), restored after), as the JAX
+              driver runs a mesh with a model axis: 2 warm-up and 5 timed
+              MLA steps at B=64, bf16 compute, each launching B2f and B2b 24
+              times and B1f/B1b never; one eval batch (24 B2f); a profiled
+              step; one step from the same weights and batch through each
+              route, losses and parameters compared; an fp32 MLA step at
+              B=2 on the card against the CPU, with phase 5's limits.
+10. ln_dense — the fused LayerNorm -> Dense op through its entry point at
+              the M3AE block's two sites (norm1 -> qkv 768 -> 2304, norm2 ->
+              fc1 768 -> 3072) on 16448 bf16 token rows with fp32
+              parameters, forward and backward through autograd: switch on,
+              one B7f launch a forward and one B7b call a backward; switch
+              off, no launch and the LayerNorm and Dense composition's
+              result.
+
 Phase 3 also holds the int8 kernels against their plain versions: B4 and
 B5 (weight-only and W8A8) at the four block sites of the base width (qkv
 768x2304, proj 768x768, fc1 768x3072, fc2 3072x768) and the image
 projection, at 257 and 16448 rows (rungs 1 and 64); B5 at layers 0, 11 and
 an out-of-range id (= 11); B6 at 257 and 16448 rows with the chooser's
-W8A8 group width.
+W8A8 group width. It holds the head-layout attention pair B2f/B2b at the
+training shape (B=64, S=257, H=12, D=64) in bf16 and fp32, at D=80, at S=9
+with a fully masked row and at S=1360 (B=2, H=12), and B7f/B7b at both
+block sites, at 257 and 16448 rows and at 1000 (off the kernels' tiles),
+in bf16 and fp32, B7b run twice for bitwise equality.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after. The second-to-last line is the kernels JSON; the last line is
@@ -160,7 +181,7 @@ def time_cuda(fn, reps: int) -> float:
 # ---------------------------------------------------------------- phase 2
 
 KERNEL_SOURCES = ("flat_attention", "flat_attention_bwd", "conv3x3",
-                  "q8_matmul", "q8_mlp")
+                  "q8_matmul", "q8_mlp", "ln_dense")
 
 
 def phase_build():
@@ -267,17 +288,12 @@ def attention_bwd_case(b, s, h, d, dtype, fully_masked_row=False, seed=0,
     # recomputed scores, dp, dq, dk, dv: five (S, S, D) products per head
     flops = 10 * b * h * s * s * d
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
-    # yardstick only: SDPA forward + backward through autograd on an
-    # equivalent additive mask; the port never calls it
     q, k, v = (qkv[..., i * c:(i + 1) * c].view(b, s, h, d).transpose(1, 2)
-               .detach().requires_grad_() for i in range(3))
+               for i in range(3))
     g = do.view(b, s, h, d).transpose(1, 2)
     bias = (mask * -1e7).to(dtype)[:, None, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
 
-    def sdpa_fwd_bwd():
-        torch.autograd.grad(sdpa(q, k, v, attn_mask=bias), (q, k, v), g)
-
+    library_ms, library_fwd_bwd_ms = time_sdpa_bwd(q, k, v, g, bias, reps)
     row = {"shape": [b, s, h, d], "dtype": str(dtype).replace("torch.", ""),
            "fully_masked_row": fully_masked_row, "max_abs_err": err,
            "atol": atol, "rtol": rtol, "ok": ok,
@@ -287,11 +303,115 @@ def attention_bwd_case(b, s, h, d, dtype, fully_masked_row=False, seed=0,
                lambda: flat_attention_bwd_reference(qkv, do, mask, h), reps),
            "fwd_ms": time_cuda(lambda: flash_attention_flat(qkv, mask, h),
                                reps),
-           "library_fwd_bwd_ms": time_cuda(sdpa_fwd_bwd, reps),
+           "library_ms": library_ms, "library_fwd_bwd_ms": library_fwd_bwd_ms,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     row["fwd_plus_bwd_ms"] = row["fwd_ms"] + row["ms"]
     print("[kernel] flat_attention_bwd " + json.dumps(row), flush=True)
+    return row
+
+
+def time_sdpa_bwd(q, k, v, g, bias, reps):
+    """Yardstick only, never called by the port: SDPA's backward alone (one
+    autograd backward through a kept graph) and its forward + backward, on
+    an equivalent additive mask. -> (backward ms, forward + backward ms)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out = sdpa(q, k, v, attn_mask=bias)
+    bwd = time_cuda(lambda: torch.autograd.grad(out, (q, k, v), g,
+                                                retain_graph=True), reps)
+    both = time_cuda(lambda: torch.autograd.grad(
+        sdpa(q, k, v, attn_mask=bias), (q, k, v), g), reps)
+    return bwd, both
+
+
+def head_inputs(b, s, h, d, dtype, fully_masked_row, seed):
+    """q, k, v, dO (B, H, S, D) and a text-style (B, S) mask on the card."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(
+        np.float32)).to("cuda", dtype) for _ in range(4))
+    mask_np = text_mask(rng, b, s)
+    if fully_masked_row:
+        mask_np[-1, :] = 1.0
+    return q, k, v, do, torch.from_numpy(mask_np).cuda()
+
+
+def head_attention_case(b, s, h, d, dtype, fully_masked_row=False, seed=0,
+                        reps=20):
+    """B2f against attention_reference; SDPA as the library yardstick."""
+    from mla_tpu_torch.ops.attention import (attention_reference,
+                                             flash_attention)
+    q, k, v, _, mask = head_inputs(b, s, h, d, dtype, fully_masked_row, seed)
+    got = flash_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    want = attention_reference(q, k, v, mask)
+    atol, rtol = TOL[dtype]
+    diff = (got.float() - want.float()).abs()
+    ok = bool(torch.all(diff <= atol + rtol * want.float().abs()))
+    if fully_masked_row:      # the mean of V over the S real keys
+        ok = ok and bool(torch.allclose(
+            got[-1].float(), v[-1].float().mean(dim=1, keepdim=True)
+            .expand(h, s, d), atol=atol, rtol=rtol))
+    es = q.element_size()
+    bias = (mask * -1e7).to(dtype)[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row = {"shape": [b, s, h, d], "dtype": str(dtype).replace("torch.", ""),
+           "fully_masked_row": fully_masked_row,
+           "max_abs_err": float(diff.max()), "atol": atol, "rtol": rtol,
+           "ok": ok,
+           "ms": time_cuda(lambda: flash_attention(q, k, v, mask), reps),
+           "plain_ms": time_cuda(
+               lambda: attention_reference(q, k, v, mask), reps),
+           # yardstick only: one library call; the port never calls it
+           "library_ms": time_cuda(lambda: sdpa(q, k, v, attn_mask=bias),
+                                   reps),
+           # q, k, v read once, the mask read once, the output written once
+           **bound(4 * b * h * s * d * es + b * s * 4, 4 * b * h * s * s * d,
+                   PEAK_FLOPS[dtype])}
+    print("[kernel] head_attention " + json.dumps(row), flush=True)
+    return row
+
+
+def head_attention_bwd_case(b, s, h, d, dtype, fully_masked_row=False,
+                            seed=0, reps=10):
+    """B2b against attention_bwd_reference; SDPA's backward (and forward +
+    backward, beside B2f + B2b) as the library yardstick."""
+    from mla_tpu_torch.ops.attention import (attention_bwd_reference,
+                                             flash_attention,
+                                             flash_attention_bwd)
+    q, k, v, do, mask = head_inputs(b, s, h, d, dtype, fully_masked_row,
+                                    seed)
+    got = flash_attention_bwd(q, k, v, do, mask)
+    torch.cuda.synchronize()
+    want = attention_bwd_reference(q, k, v, do, mask)
+    atol, rtol = TOL_BWD[dtype]
+    diffs = [(gt.float() - w.float()).abs() for gt, w in zip(got, want)]
+    ok = all(bool(torch.all(df <= atol + rtol * w.float().abs()))
+             for df, w in zip(diffs, want))
+    if fully_masked_row:      # P = 1/S: dq = dk = 0, dv = mean of dO
+        ok = ok and bool(torch.all(got[0][-1] == 0)) and bool(
+            torch.all(got[1][-1] == 0)) and bool(torch.allclose(
+                got[2][-1].float(), do[-1].float().mean(dim=1, keepdim=True)
+                .expand(h, s, d), atol=atol, rtol=rtol))
+    es = q.element_size()
+    bias = (mask * -1e7).to(dtype)[:, None, None, :]
+    library_ms, library_fwd_bwd_ms = time_sdpa_bwd(q, k, v, do, bias, reps)
+    row = {"shape": [b, s, h, d], "dtype": str(dtype).replace("torch.", ""),
+           "fully_masked_row": fully_masked_row,
+           "max_abs_err": max(float(df.max()) for df in diffs),
+           "atol": atol, "rtol": rtol, "ok": ok,
+           "ms": time_cuda(lambda: flash_attention_bwd(q, k, v, do, mask),
+                           reps),
+           "plain_ms": time_cuda(
+               lambda: attention_bwd_reference(q, k, v, do, mask), reps),
+           "fwd_ms": time_cuda(lambda: flash_attention(q, k, v, mask), reps),
+           "library_ms": library_ms, "library_fwd_bwd_ms": library_fwd_bwd_ms,
+           # q, k, v, dO and the mask read once, dq, dk, dv written once;
+           # five (S, S, D) products per head (scores, dp, dq, dk, dv)
+           **bound(7 * b * h * s * d * es + b * s * 4, 10 * b * h * s * s * d,
+                   PEAK_FLOPS[dtype])}
+    row["fwd_plus_bwd_ms"] = row["fwd_ms"] + row["ms"]
+    print("[kernel] head_attention_bwd " + json.dumps(row), flush=True)
     return row
 
 
@@ -310,6 +430,25 @@ def phase_kernels():
     bad = [r for r in bwd_rows if not r["ok"]]
     check(not bad, f"flat attention backward kernel disagrees with its "
                    f"plain version: {bad}")
+    return rows, bwd_rows
+
+
+def phase_head_kernels():
+    """B2f and B2b at the training shape (bf16, fp32), the huge width's
+    D = 80, S = 9 with a fully masked row, and S = 1360, where the JAX
+    package on a TPU would take its q-blockwise kernel and its XLA
+    backward."""
+    rows, bwd_rows = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        for case, out in ((head_attention_case, rows),
+                          (head_attention_bwd_case, bwd_rows)):
+            out.append(case(64, 257, 12, 64, dtype, seed=64))
+            out.append(case(8, 257, 16, 80, dtype, seed=80))
+            out.append(case(2, 9, 4, 16, dtype, True, seed=9))
+            out.append(case(2, 1360, 12, 64, dtype, seed=1360))
+    bad = [r for r in rows + bwd_rows if not r["ok"]]
+    check(not bad, f"head attention kernels disagree with their plain "
+                   f"versions: {bad}")
     return rows, bwd_rows
 
 
@@ -433,12 +572,13 @@ def q8_weight(rng, *shape):
     return torch.from_numpy(q).cuda(), torch.from_numpy(sc[..., 0]).cuda()
 
 
-def ulp_err(got, want, atol):
-    """(max |got - want|, whether each is within atol + 1 ulp)."""
+def ulp_err(got, want, atol, rtol=ULP):
+    """(max |got - want|, whether each is within atol + rtol of the larger
+    of the two; by default one bf16 ulp)."""
     got, want = got.float(), want.float()
     diff = (got - want).abs()
     big = torch.maximum(got.abs(), want.abs())
-    return float(diff.max()), bool(torch.all(diff <= atol + ULP * big))
+    return float(diff.max()), bool(torch.all(diff <= atol + rtol * big))
 
 
 def bound(nbytes, ops, peak):
@@ -561,6 +701,145 @@ def phase_q8_kernels():
     bad = [r for r in gemm + mlp if not r["ok"]]
     check(not bad, f"int8 kernels disagree with their plain versions: {bad}")
     return gemm, mlp
+
+
+# the fused LayerNorm -> Dense op (B7f, B7b) at the M3AE block's two sites
+# (norm1 -> qkv, norm2 -> fc1), at rungs 1 and 64 of the base width (257 and
+# 16448 token rows) and at a row count off the kernels' tiles
+LN_SITES = {"qkv": (768, 2304), "fc1": (768, 3072)}
+LN_ROWS = (257, 16448)
+# B7f: fp32 outputs are sums over C = 768 products in another order than
+# cuBLAS's (|y| ~ 1). A bf16 output rounds twice, the fp32 sum and then the
+# sum plus the bias, and a sum near a rounding boundary may round the other
+# way: one ulp of the sum, up to two of y where the bias cancels part of it
+# (2 * ULP, plus 2^-7 of the largest |bias| ~ 0.45; two ulps measured on
+# an H100); an LN output h whose fp32 statistics differ in the last place
+# may round the other way too, moving its products by 2^-8 of one term
+# (absolute 2e-3, 6e-3 in all).
+# B7b, by output: dx two bf16 ulps, since it is a difference of nearly
+# equal fp32 terms (1.22 ulps measured on an H100); dscale, dbias, dW and
+# dc are fp32 sums over up to 16448 rows,
+# taken one after another in the kernels and pairwise by PyTorch (absolute
+# 1e-2 at sums of |v| ~ 100-1000; measured 4.3e-3); a bf16 dW also sums
+# h's that round the other way, each moving it by |dy| times one bf16 ulp
+# of h (up to ~0.06; absolute 0.25 covers a few in one sum).
+LN_TOL = {torch.float32: {"y": (1e-4, 1e-5), "dx": (1e-4, 1e-4),
+                          "ds": (1e-2, 1e-4), "db": (1e-2, 1e-4),
+                          "dw": (1e-2, 1e-4), "dc": (1e-2, 1e-4)},
+          torch.bfloat16: {"y": (6e-3, 2 * ULP), "dx": (2e-3, 2 * ULP),
+                           "ds": (1e-2, 1e-4), "db": (1e-2, 1e-4),
+                           "dw": (0.25, 1e-3), "dc": (1e-2, 1e-4)}}
+
+
+def ln_inputs(n, c, f, dtype, seed):
+    """x (n, C) and dy (n, F) in dtype; the LN scale and bias (C,), the
+    Dense weight (F, C) and bias (F,) in fp32, as the M3AE block holds
+    them."""
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(a.astype(np.float32)).to("cuda", dt)
+    return (t(rng.standard_normal((n, c)), dtype),
+            t(rng.standard_normal(c) * 0.1 + 1.0),
+            t(rng.standard_normal(c) * 0.1),
+            t(rng.standard_normal((f, c)) / np.sqrt(c)),
+            t(rng.standard_normal(f) * 0.1),
+            t(rng.standard_normal((n, f)), dtype))
+
+
+def ln_dense_case(site, n, dtype, seed=0, reps=20):
+    """B7f against ln_dense_reference; F.layer_norm + F.linear as the
+    library yardstick."""
+    import torch.nn.functional as F
+    from mla_tpu_torch.ops.fused_block import (ln_dense_fwd,
+                                               ln_dense_reference)
+    c, f = LN_SITES[site]
+    x, sc, bi, w, db, _ = ln_inputs(n, c, f, dtype, seed)
+    got = ln_dense_fwd(x, sc, bi, w, db, 1e-5, dtype)
+    torch.cuda.synchronize()
+    want = ln_dense_reference(x, sc, bi, w, db, 1e-5, dtype)
+    es = x.element_size()
+    wc, sc_c, bi_c, db_c = (t.to(dtype) for t in (w, sc, bi, db))
+    err, ok = ulp_err(got, want, *LN_TOL[dtype]["y"])
+    row = {"site": site, "rows": n, "c": c, "f": f,
+           "dtype": str(dtype).replace("torch.", ""),
+           "max_abs_err": err, "tol": LN_TOL[dtype]["y"], "ok": ok,
+           "ms": time_cuda(lambda: ln_dense_fwd(x, sc, bi, w, db, 1e-5,
+                                                dtype), reps),
+           "plain_ms": time_cuda(lambda: ln_dense_reference(
+               x, sc, bi, w, db, 1e-5, dtype), max(reps // 4, 3)),
+           # yardstick only, never called by the port
+           "library_ms": time_cuda(lambda: F.linear(F.layer_norm(
+               x, (c,), sc_c, bi_c), wc, db_c), reps),
+           # x, the LN and Dense parameters read once, the output written
+           **bound(n * c * es + 8 * c + f * c * es + 4 * f + n * f * es,
+                   2 * n * c * f, PEAK_FLOPS[dtype])}
+    row["tflops"] = 2 * n * c * f / row["ms"] / 1e9
+    print("[kernel] ln_dense " + json.dumps(row), flush=True)
+    return row
+
+
+def ln_dense_bwd_case(site, n, dtype, seed=0, reps=10):
+    """B7b against ln_dense_bwd_reference, and run twice for bitwise
+    equality (no atomics); the autograd backward of F.layer_norm + F.linear
+    as the library yardstick."""
+    import torch.nn.functional as F
+    from mla_tpu_torch.ops.fused_block import (ln_dense_bwd,
+                                               ln_dense_bwd_reference,
+                                               ln_dense_fwd)
+    c, f = LN_SITES[site]
+    x, sc, bi, w, db, dy = ln_inputs(n, c, f, dtype, seed)
+    got = ln_dense_bwd(x, sc, bi, w, dy, 1e-5, dtype)
+    again = ln_dense_bwd(x, sc, bi, w, dy, 1e-5, dtype)
+    torch.cuda.synchronize()
+    want = ln_dense_bwd_reference(x, sc, bi, w, dy, 1e-5, dtype)
+    names = ("dx", "ds", "db", "dw", "dc")
+    res = {k: ulp_err(g, wt, *LN_TOL[dtype][k])
+           for k, g, wt in zip(names, got, want)}
+    errs = {k: r[0] for k, r in res.items()}
+    oks = {k: r[1] for k, r in res.items()}
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    leaves = [t.detach().to(dtype).requires_grad_()
+              for t in (x, sc, bi, w, db)]
+    out = F.linear(F.layer_norm(leaves[0], (c,), leaves[1], leaves[2]),
+                   leaves[3], leaves[4])
+    es = x.element_size()
+    row = {"site": site, "rows": n, "c": c, "f": f,
+           "dtype": str(dtype).replace("torch.", ""),
+           "max_abs_err": max(errs.values()), "errs": errs, "oks": oks,
+           "deterministic": same, "ok": all(oks.values()) and same,
+           "ms": time_cuda(lambda: ln_dense_bwd(x, sc, bi, w, dy, 1e-5,
+                                                dtype), reps),
+           "plain_ms": time_cuda(lambda: ln_dense_bwd_reference(
+               x, sc, bi, w, dy, 1e-5, dtype), 3),
+           "fwd_ms": time_cuda(lambda: ln_dense_fwd(x, sc, bi, w, db, 1e-5,
+                                                    dtype), reps),
+           # yardstick only: the library pair's autograd backward alone
+           "library_ms": time_cuda(lambda: torch.autograd.grad(
+               out, leaves, dy, retain_graph=True), reps),
+           # x, the parameters, W and dy read once; dx, dscale, dbias, dW
+           # (fp32) and dc written once; two GEMMs (dh and dW)
+           **bound(2 * n * c * es + 8 * c + f * c * es + n * f * es
+                   + 8 * c + 4 * f * c + 4 * f, 4 * n * c * f,
+                   PEAK_FLOPS[dtype])}
+    row["fwd_plus_bwd_ms"] = row["fwd_ms"] + row["ms"]
+    print("[kernel] ln_dense_bwd " + json.dumps(row), flush=True)
+    return row
+
+
+def phase_ln_kernels():
+    rows, bwd_rows = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, site in enumerate(LN_SITES):
+            for n in LN_ROWS:
+                rows.append(ln_dense_case(site, n, dtype, seed=n + i))
+                bwd_rows.append(ln_dense_bwd_case(site, n, dtype, seed=n + i))
+        rows.append(ln_dense_case("qkv", 1000, dtype, seed=1000))
+        bwd_rows.append(ln_dense_bwd_case("qkv", 1000, dtype, seed=1000))
+    bad = [r for r in rows + bwd_rows if not r["ok"]]
+    check(not bad, f"ln_dense kernels disagree with their plain versions: "
+                   f"{bad}")
+    return rows, bwd_rows
 
 
 # ---------------------------------------------------------------- phase 4
@@ -761,10 +1040,30 @@ def all_finite(tensors) -> bool:
     return all(bool(torch.isfinite(t).all()) for t in tensors)
 
 
-def launch_counts():
-    from mla_tpu_torch.ops.attention import (flash_attention_flat,
+def attention_kernels():
+    """The attention wrappers by kernel."""
+    from mla_tpu_torch.ops.attention import (flash_attention,
+                                             flash_attention_bwd,
+                                             flash_attention_flat,
                                              flash_attention_flat_bwd)
-    return flash_attention_flat.launches, flash_attention_flat_bwd.launches
+    return {"B2f": flash_attention, "B2b": flash_attention_bwd,
+            "B1f": flash_attention_flat, "B1b": flash_attention_flat_bwd}
+
+
+def attention_counts():
+    return {k: fn.launches for k, fn in attention_kernels().items()}
+
+
+def launch_counts():
+    """(forward, backward) launches of the flat attention kernels."""
+    c = attention_counts()
+    return c["B1f"], c["B1b"]
+
+
+def head_launch_counts():
+    """(forward, backward) launches of the head-layout attention kernels."""
+    c = attention_counts()
+    return c["B2f"], c["B2b"]
 
 
 def phase_training():
@@ -879,10 +1178,13 @@ def phase_training():
             "cpu_agreement": cpu_agreement()}
 
 
-def cpu_agreement():
+def cpu_agreement(counts=None, label="train"):
     """One MLA step at B=2, full base width, float32: on the card with the
     kernels against the CPU with the plain versions, from the same weights
-    and batch. Relative L2 over all parameters and momentum buffers."""
+    and batch. Relative L2 over all parameters and momentum buffers.
+    ``counts`` gives the (forward, backward) launches of the attention
+    route the step takes (the flat kernels' by default)."""
+    counts = counts or launch_counts
     from mla_tpu_torch.core.config import MLAConfig
     from mla_tpu_torch.models.classifiers import build_classifier
     from mla_tpu_torch.train import optim
@@ -898,12 +1200,12 @@ def cpu_agreement():
         spec = optim.make_spec(cfg)
         st = create_train_state(model, cfg, spec, seed=1, device=dev)
         batch = train_batch(np.random.default_rng(7), 2, device=dev)
-        f0, b0 = launch_counts()
+        f0, b0 = counts()
         t = time.perf_counter()
         st, met = make_train_step(model, cfg, spec, len_dl=1)(
             st, batch, optim.lr_for_epoch(cfg, 0), 0)
         met = {k: float(v) for k, v in met.items()}
-        f1, b1 = launch_counts()
+        f1, b1 = counts()
         n = 2 * model.mae_a.config.depth
         check((f1 - f0, b1 - b0) == ((n, n) if dev == "cuda" else (0, 0)),
               f"fp32 step on {dev}: {f1 - f0} / {b1 - b0} kernel launches")
@@ -924,7 +1226,7 @@ def cpu_agreement():
            "loss_rel": {k: abs(lg[k] - lc[k]) / abs(lc[k]) for k in lc},
            "losses_card": lg, "losses_cpu": lc, "step_s_card": tg,
            "step_s_cpu": tc}
-    print(f"[train] fp32 MLA step B=2, card vs CPU: {json.dumps(res)}",
+    print(f"[{label}] fp32 MLA step B=2, card vs CPU: {json.dumps(res)}",
           flush=True)
     check(res["params_rel_l2"] <= 1e-6 and res["momentum_rel_l2"] <= 1e-3
           and max(res["loss_rel"].values()) <= 1e-4,
@@ -1433,6 +1735,258 @@ def phase_int8_serving(work: Path):
     return out
 
 
+# ---------------------------------------------------------------- phase 9
+
+def counts_since(before):
+    now = attention_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+# one step through the head route against the flat route, same weights and
+# batch: B2 runs B1's arithmetic, so the prediction is bit for bit; the
+# limits leave room for cuBLAS taking another algorithm on a differently
+# aligned copy (bf16 compute)
+ROUTE_PARAMS_REL_L2, ROUTE_LOSS_REL = 1e-5, 1e-3
+
+
+def phase_head_training(flat_median_ms):
+    """Phase 9: the M3AE MLA training path with the flat kernels off for the
+    whole phase, as the JAX driver runs every step and eval of a run whose
+    mesh has a model axis; restored on the way out."""
+    from mla_tpu_torch.ops import attention
+    attention.set_flat_attention(False)
+    try:
+        return head_training(flat_median_ms)
+    finally:
+        attention.set_flat_attention(True)
+
+
+def head_training(flat_median_ms):
+    from mla_tpu_torch.core.config import MLAConfig
+    from mla_tpu_torch.evals.metrics import make_eval_step, summarize_counts
+    from mla_tpu_torch.models.classifiers import build_classifier
+    from mla_tpu_torch.train import optim
+    from mla_tpu_torch.train.state import create_train_state
+    from mla_tpu_torch.train.steps import make_train_step
+
+    b, n_steps, n_warm = TRAIN_BATCH, 7, 2
+    cfg = MLAConfig(dataset="Food101", lorb="m3ae", gs_flag=True,
+                    m3ae_size=TRAIN_SIZE, batch_size=b).validate()
+    model = build_classifier(cfg, seed=0)
+    per_pass = 2 * model.mae_a.config.depth
+    spec = optim.make_spec(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    state = create_train_state(model, cfg, spec, seed=0)
+    rng = np.random.default_rng(1)
+    batches = [train_batch(rng, b) for _ in range(n_steps)]
+    eval_batch = train_batch(rng, b)
+    step = make_train_step(model, cfg, spec, len_dl=n_steps)
+    lr = optim.lr_for_epoch(cfg, 0)
+    want = {"B2f": per_pass, "B2b": per_pass, "B1f": 0, "B1b": 0}
+
+    # -- the main path: counters 0 just before, read just after ----------
+    for fn in attention_kernels().values():
+        fn.launches = 0
+    times, losses = [], []
+    for i, batch in enumerate(batches):
+        before = attention_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step(state, batch, lr, i)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        got = counts_since(before)
+        check(got == want, f"head-route MLA step {i}: launches {got}, "
+                           f"expected {want}")
+        if i >= n_warm:
+            times.append(dt)
+        losses.append({k: float(v) for k, v in metrics.items()})
+    before = attention_counts()
+    counts = make_eval_step(model, cfg)(eval_batch)
+    got = counts_since(before)
+    check(got == {**want, "B2b": 0}, f"head-route eval: launches {got}")
+    check(float(counts["num"].sum()) == b, f"eval counts {counts['num']}")
+    accuracy = summarize_counts(counts)
+    launches = attention_counts()
+    # -- end of the main path ---------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(v) for ls in losses for v in ls.values())
+          and all_finite(state.params.values()),
+          f"non-finite head-route loss or parameter: {losses}")
+    med = float(np.median(times)) * 1e3
+    print(f"[head-train] MLA B={b}, flat kernels off: median {med:.2f} ms of "
+          f"{len(times)} steps (min {min(times) * 1e3:.2f}), "
+          f"{b / med * 1e3:.1f} clips/s (flat route, phase 5: "
+          f"{flat_median_ms:.2f} ms); peak {peak / 2**30:.2f} GiB; losses "
+          f"{losses[0]['loss']:.4f} -> {losses[-1]['loss']:.4f}; launches "
+          f"{launches}; eval {accuracy}", flush=True)
+    profile = profile_call(lambda: step(state, batches[0], lr, 0))
+    print(f"[trace] head-route MLA step B={b}: wall {profile['wall_ms']:.2f} "
+          f"ms, device busy {profile['device_ms']:.2f} ms "
+          f"({100 * profile['busy_share']:.1f}%); top: "
+          + json.dumps(profile["top"][:8]), flush=True)
+    del state, model, step
+    torch.cuda.empty_cache()
+    return {"batch": b, "step_ms": [t * 1e3 for t in times],
+            "median_step_ms": med, "clips_per_s": b / med * 1e3,
+            "flat_median_step_ms": flat_median_ms, "peak_bytes": peak,
+            "losses": losses, "eval": accuracy, "launches": launches,
+            "profile": profile,
+            "route_agreement": route_agreement(cfg, spec, batches[0], lr),
+            "cpu_agreement": cpu_agreement(head_launch_counts, "head-train")}
+
+
+def route_agreement(cfg, spec, batch, lr):
+    """One MLA step from the same seeded weights and batch through the head
+    route and, with the switch on for that step, the flat route: losses and
+    updated parameters compared."""
+    from mla_tpu_torch.models.classifiers import build_classifier
+    from mla_tpu_torch.ops import attention
+    from mla_tpu_torch.train.state import create_train_state
+    from mla_tpu_torch.train.steps import make_train_step
+
+    out = {}
+    for flat in (False, True):
+        attention.set_flat_attention(flat)
+        try:
+            model = build_classifier(cfg, seed=0)
+            st = create_train_state(model, cfg, spec, seed=0)
+            before = attention_counts()
+            st, met = make_train_step(model, cfg, spec, len_dl=1)(
+                st, batch, lr, 0)
+            torch.cuda.synchronize()
+            got = counts_since(before)
+        finally:
+            attention.set_flat_attention(False)
+        used = ("B1f", "B1b") if flat else ("B2f", "B2b")
+        check(all(got[k] > 0 for k in used)
+              and sum(got.values()) == sum(got[k] for k in used),
+              f"route step (flat={flat}): launches {got}")
+        out[flat] = ({n: p.detach().clone() for n, p in st.params.items()},
+                     {k: float(v) for k, v in met.items()})
+        del model, st
+    (ph, lh), (pf, lf) = out[False], out[True]
+    res = {"params_rel_l2": rel_l2(ph, pf),
+           "bitwise_equal": all(torch.equal(ph[n], pf[n]) for n in pf)
+           and lh == lf,
+           "loss_rel": {k: abs(lh[k] - lf[k]) / abs(lf[k]) for k in lf},
+           "losses_head": lh, "losses_flat": lf}
+    del out, ph, pf
+    torch.cuda.empty_cache()
+    print(f"[head-train] one step, head route vs flat route: "
+          f"{json.dumps(res)}", flush=True)
+    check(res["params_rel_l2"] <= ROUTE_PARAMS_REL_L2
+          and max(res["loss_rel"].values()) <= ROUTE_LOSS_REL,
+          f"the head route's step drifts from the flat route's: {res}")
+    return res
+
+
+# ---------------------------------------------------------------- phase 10
+
+# ln_dense on (the kernels) against off (the LayerNorm and Dense
+# composition) through autograd, bf16 compute: outputs as B7f's plain
+# comparison; gradients by relative L2, since autograd through the
+# composition rounds dh to bf16 where the kernel law keeps it in fp32
+# (about 2^-9 relative per element)
+LN_PATH_GRAD_REL_L2 = 1e-2
+
+
+def ln_path_inputs(site, b, s, seed):
+    """The autograd leaves (x (B, S, C) bf16; the fp32 LN and Dense
+    parameters) and dy (B, S, F) of one site."""
+    c, f = LN_SITES[site]
+    x, sc, bi, w, db, dy = ln_inputs(b * s, c, f, torch.bfloat16, seed)
+    leaves = [x.view(b, s, c).requires_grad_()] + [
+        t.requires_grad_() for t in (sc, bi, w, db)]
+    return leaves, dy.view(b, s, f)
+
+
+def ln_path_step(leaves, dy):
+    """ln_dense forward and backward through autograd, bf16 compute."""
+    from mla_tpu_torch.ops.fused_block import ln_dense
+    y = ln_dense(*leaves, dtype=torch.bfloat16)
+    return y, torch.autograd.grad(y, leaves, dy)
+
+
+def phase_ln_dense():
+    """Phase 10: the fused LayerNorm -> Dense op through its own entry point,
+    ``ln_dense``, at the M3AE block's two sites on a B=64 batch of base-width
+    token rows (16448), bf16 compute on fp32 parameters, forward and
+    backward through autograd; with the switch on, then off."""
+    from mla_tpu_torch.ops import fused_block as fbk
+    b, s = TRAIN_BATCH, 257
+    out = {}
+
+    def counts():
+        return fbk.ln_dense_fwd.launches, fbk.ln_dense_bwd.launches
+
+    fbk.set_fused_ln_dense(True)
+    try:
+        # -- the main path: counters 0 just before, read just after ------
+        fbk.ln_dense_fwd.launches = 0
+        fbk.ln_dense_bwd.launches = 0
+        for i, site in enumerate(LN_SITES):
+            leaves, dy = ln_path_inputs(site, b, s, seed=10 + i)
+            f0, b0 = counts()
+            y_on, g_on = ln_path_step(leaves, dy)
+            y_on = y_on.detach()
+            torch.cuda.synchronize()
+            on = (counts()[0] - f0, counts()[1] - b0)
+            check(on == (1, 1), f"ln_dense {site}, switch on: launches "
+                                f"(B7f, B7b) {on}, expected (1, 1)")
+            fbk.set_fused_ln_dense(False)
+            try:
+                f0, b0 = counts()
+                y_off, g_off = ln_path_step(leaves, dy)
+                y_off = y_off.detach()
+                torch.cuda.synchronize()
+                off = (counts()[0] - f0, counts()[1] - b0)
+            finally:
+                fbk.set_fused_ln_dense(True)
+            check(off == (0, 0), f"ln_dense {site}, switch off: launches "
+                                 f"{off}")
+            rel = [float(torch.linalg.norm(a.float() - o.float())
+                         / torch.linalg.norm(o.float()))
+                   for a, o in zip(g_on, g_off)]
+            y_err, y_ok = ulp_err(y_on, y_off, *LN_TOL[torch.bfloat16]["y"])
+            res = {"rows": b * s, "c": leaves[0].shape[-1],
+                   "f": leaves[3].shape[0], "y_ok": y_ok,
+                   "y_max_abs_err": y_err,
+                   "grad_rel_l2": dict(zip(("dx", "dscale", "dbias", "dW",
+                                            "dc"), rel)),
+                   "grad_types_ok": all(gr.dtype == t.dtype for gr, t
+                                        in zip(g_on, leaves)),
+                   "finite": all_finite([y_on, *g_on]),
+                   "launches_on": on, "launches_off": off}
+            out[site] = res
+            print(f"[ln_dense] {site}: " + json.dumps(res), flush=True)
+            check(res["y_ok"] and res["grad_types_ok"] and res["finite"]
+                  and max(rel) <= LN_PATH_GRAD_REL_L2,
+                  f"ln_dense {site}: switch on drifts from off: {res}")
+            del leaves, dy, y_on, g_on, y_off, g_off
+        launches = counts()
+        # -- end of the main path -----------------------------------------
+        for i, site in enumerate(LN_SITES):     # forward + backward times
+            leaves, dy = ln_path_inputs(site, b, s, seed=10 + i)
+            out[site]["on_fwd_bwd_ms"] = time_cuda(
+                lambda: ln_path_step(leaves, dy), 5)
+            fbk.set_fused_ln_dense(False)
+            try:
+                out[site]["off_fwd_bwd_ms"] = time_cuda(
+                    lambda: ln_path_step(leaves, dy), 5)
+            finally:
+                fbk.set_fused_ln_dense(True)
+            print(f"[ln_dense] {site}: forward + backward, switch on "
+                  f"{out[site]['on_fwd_bwd_ms']:.3f} ms, off "
+                  f"{out[site]['off_fwd_bwd_ms']:.3f} ms", flush=True)
+            del leaves, dy
+    finally:
+        fbk.set_fused_ln_dense(False)
+    torch.cuda.empty_cache()
+    return {"sites": out, "launches_fwd": launches[0],
+            "launches_bwd": launches[1]}
+
+
 # ---------------------------------------------------------------- main
 
 def main():
@@ -1449,6 +2003,8 @@ def main():
     t_start = time.perf_counter()
     build_s = phase_build()
     rows, bwd_rows = phase_kernels()
+    head_rows, head_bwd_rows = phase_head_kernels()
+    ln_rows, ln_bwd_rows = phase_ln_kernels()
     conv_rows, conv_dx_rows = phase_conv_kernels()
     q8_rows, mlp_rows = phase_q8_kernels()
     (ROOT / "build").mkdir(exist_ok=True)
@@ -1465,6 +2021,8 @@ def main():
         int8 = phase_int8_serving(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    head_training = phase_head_training(training["median_step_ms"])
+    ln_path = phase_ln_dense()
 
     def main_shape(rs):
         return next(r for r in rs if r["shape"] == [64, 257, 12, 64]
@@ -1491,9 +2049,9 @@ def main():
                 "max_abs_err": bwd["max_abs_err"],
                 "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
                 "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
-                # no one library call computes the backward alone; SDPA
-                # forward + backward is set beside B1f + B1b instead
-                "library_ms": None,
+                # SDPA's backward alone; its forward + backward is set
+                # beside B1f + B1b
+                "library_ms": bwd["library_ms"],
                 "library_fwd_bwd_ms": bwd["library_fwd_bwd_ms"],
                 "fwd_plus_bwd_ms": bwd["fwd_plus_bwd_ms"],
                 "max_abs_err_all": max(r["max_abs_err"] for r in bwd_rows),
@@ -1550,15 +2108,67 @@ def main():
                  q8_total["B5"]),
         q8_entry("q8_mlp_stacked", "mla_tpu/ops/q8_matmul.py:435", mlp_rows,
                  lambda r: r["rows"] == 16448, q8_total["B6"])]
+    hf, hb = main_shape(head_rows), main_shape(head_bwd_rows)
+    kernels += [
+        {"name": "head_attention", **common,
+         "source": "mla_tpu_torch/ops/csrc/flat_attention.cu",
+         "replaces": "mla_tpu/ops/attention.py:94",
+         "launches": head_training["launches"]["B2f"],
+         "max_abs_err": hf["max_abs_err"], "ms": hf["ms"],
+         "plain_ms": hf["plain_ms"], "bound_ms": hf["bound_ms"],
+         "bound_by": hf["bound_by"], "library_ms": hf["library_ms"],
+         # over every case of phase 3 (both dtypes, D=80, S=9, S=1360)
+         "max_abs_err_all": max(r["max_abs_err"] for r in head_rows),
+         "all_ok": all(r["ok"] for r in head_rows)},
+        {"name": "head_attention_bwd", **common,
+         "source": "mla_tpu_torch/ops/csrc/flat_attention_bwd.cu",
+         "replaces": "mla_tpu/ops/attention.py:200",
+         "launches": head_training["launches"]["B2b"],
+         "max_abs_err": hb["max_abs_err"], "ms": hb["ms"],
+         "plain_ms": hb["plain_ms"], "bound_ms": hb["bound_ms"],
+         "bound_by": hb["bound_by"], "library_ms": hb["library_ms"],
+         "library_fwd_bwd_ms": hb["library_fwd_bwd_ms"],
+         "fwd_plus_bwd_ms": hb["fwd_plus_bwd_ms"],
+         "max_abs_err_all": max(r["max_abs_err"] for r in head_bwd_rows),
+         "all_ok": all(r["ok"] for r in head_bwd_rows)}]
+
+    def ln_main(rs):
+        return next(r for r in rs if r["site"] == "qkv"
+                    and r["rows"] == 16448 and r["dtype"] == "bfloat16")
+
+    lf, lb = ln_main(ln_rows), ln_main(ln_bwd_rows)
+    ln_common = {"route": "cuda", "at": "qkv site, 16448 x 768 -> 2304 bf16",
+                 "source": "mla_tpu_torch/ops/csrc/ln_dense.cu"}
+    kernels += [
+        {"name": "ln_dense", **ln_common,
+         "replaces": "mla_tpu/ops/fused_block.py:116",
+         "launches": ln_path["launches_fwd"],
+         "max_abs_err": lf["max_abs_err"], "ms": lf["ms"],
+         "plain_ms": lf["plain_ms"], "bound_ms": lf["bound_ms"],
+         "bound_by": lf["bound_by"], "library_ms": lf["library_ms"],
+         "max_abs_err_all": max(r["max_abs_err"] for r in ln_rows),
+         "all_ok": all(r["ok"] for r in ln_rows)},
+        {"name": "ln_dense_bwd", **ln_common,
+         "replaces": "mla_tpu/ops/fused_block.py:124",
+         "launches": ln_path["launches_bwd"],
+         "max_abs_err": lb["max_abs_err"], "ms": lb["ms"],
+         "plain_ms": lb["plain_ms"], "bound_ms": lb["bound_ms"],
+         "bound_by": lb["bound_by"], "library_ms": lb["library_ms"],
+         "fwd_plus_bwd_ms": lb["fwd_plus_bwd_ms"],
+         "max_abs_err_all": max(r["max_abs_err"] for r in ln_bwd_rows),
+         "all_ok": all(r["ok"] for r in ln_bwd_rows)}]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
         "device": smi, "torch": torch.__version__, "build_s": build_s,
         "kernel_cases": rows, "bwd_kernel_cases": bwd_rows,
+        "head_kernel_cases": head_rows, "head_bwd_kernel_cases": head_bwd_rows,
+        "ln_kernel_cases": ln_rows, "ln_bwd_kernel_cases": ln_bwd_rows,
         "conv_kernel_cases": conv_rows, "conv_dx_cases": conv_dx_rows,
         "q8_kernel_cases": q8_rows, "q8_mlp_cases": mlp_rows,
         "serving": serving, "training": training,
         "av_serving": av_serving, "av_training": av_training,
-        "int8_serving": int8,
+        "int8_serving": int8, "head_training": head_training,
+        "ln_dense_path": ln_path,
         "seconds": time.perf_counter() - t_start}, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,20 @@
-// Flat-layout masked attention forward for Hopper (sm_90a), plain C interface.
+// Masked attention forward for Hopper (sm_90a), plain C interface, on two
+// memory layouts that share one kernel.
 //
-// Replaces mla_tpu/ops/attention.py:_attn_kernel_flat (the Pallas TPU kernel
-// behind flash_attention_flat). It reads q, k and v by column straight out of
-// the fused qkv projection (B, S, 3C) and writes (B, S, C) in the layout the
-// output projection consumes, so no transpose runs before or after it.
+// Flat layout: replaces mla_tpu/ops/attention.py:_attn_kernel_flat (the
+// Pallas TPU kernel behind flash_attention_flat). It reads q, k and v by
+// column straight out of the fused qkv projection (B, S, 3C) and writes
+// (B, S, C) in the layout the output projection consumes, so no transpose
+// runs before or after it (mla_flat_attention_fwd).
+//
+// Head layout: replaces mla_tpu/ops/attention.py:_attn_kernel_heads and the
+// q-blockwise _attn_kernel (the Pallas TPU kernels behind flash_attention):
+// q, k, v and the output are (B, H, S, D) tensors (mla_head_attention_fwd).
+//
+// The layouts differ only in addressing: each (batch row, head) reads a
+// plane of S rows of D elements, at row stride 3C (flat, column offset h*D)
+// or D (head, plane offset (b*H + h)*S*D). The kernel takes those strides
+// and its arithmetic is the same for both.
 //
 // Semantics (same as attention_reference in the JAX package and the original
 // PyTorch model): per head, scores = (q . k) * scale in fp32; where
@@ -11,8 +22,11 @@
 // -inf); softmax in fp32; the probabilities are rounded to the input type
 // before the PV product; fp32 accumulation. The key loop stops at S, so no
 // padding key ever enters the sum: a row whose keys are all masked gives the
-// mean of V over the S real keys (the TPU kernel pads S to a multiple of 8
-// and averages over the padded length there instead).
+// mean of V over the S real keys (the TPU kernels pad S to a multiple of 8
+// and average over the padded length there instead). The TPU's q-blockwise
+// kernel, taken there for sequences whose scores outgrow VMEM, upcasts q, k
+// and v and never rounds P; this kernel keys through tiles with no length
+// limit and keeps the one law at every S.
 //
 // Design. One block per (q-tile of 64 rows, head, batch row); one thread per
 // query row, holding q and the output accumulator in registers. Key/value
@@ -26,7 +40,8 @@
 // (64*257*768*2 B), 101 MB, i.e. 30 us at 3.35 TB/s; its 4*B*H*S^2*D =
 // 13.0 GFLOP take 13 us at the bf16 tensor-core peak. So the kernel is bound
 // by memory traffic, and a tensor-core version (mma/wgmma) is what would get
-// it there; on the FMA pipes used here the operations dominate instead.
+// it there; on the FMA pipes used here the operations dominate instead. The
+// head layout moves the same bytes.
 #include <math.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -38,6 +53,11 @@ constexpr int QT = 64;  // query rows per block (one per thread)
 constexpr int KT = 64;  // keys per shared-memory tile
 constexpr int CH = 8;   // keys per online-softmax update
 constexpr float kMasked = -1e7f;
+
+// Byte strides of one operand: batch row, head, sequence row.
+struct Strides {
+  long long b, h, s;
+};
 
 // Element formats, moved 16 bytes at a time.
 template <bool BF16> struct Elem;
@@ -96,9 +116,11 @@ __device__ __forceinline__ void load16(const char* src, float* dst) {
 
 template <bool BF16, int D>
 __global__ void __launch_bounds__(QT)
-flat_attention_fwd_kernel(const char* __restrict__ qkv,
-                          const float* __restrict__ mask,
-                          char* __restrict__ out, int S, int H, float scale) {
+attention_fwd_kernel(const char* __restrict__ q_in,
+                     const char* __restrict__ k_in,
+                     const char* __restrict__ v_in,
+                     const float* __restrict__ mask, char* __restrict__ out,
+                     int S, Strides in, Strides os, float scale) {
   using E = Elem<BF16>;
   constexpr int V = E::V;
   constexpr int CHUNKS = D / V;  // 16-byte pieces per head row
@@ -113,16 +135,14 @@ flat_attention_fwd_kernel(const char* __restrict__ qkv,
   const int b = blockIdx.z;
   const int qi = blockIdx.x * QT + t;
   const bool live = qi < S;
-  const int C = H * D;
-  const long long row_bytes = 3LL * C * E::BYTES;  // qkv row stride
-  const char* base = qkv + (long long)b * S * row_bytes;
-  const long long k_off = (long long)(C + h * D) * E::BYTES;
-  const long long v_off = (long long)(2 * C + h * D) * E::BYTES;
+  const long long plane = b * in.b + h * in.h;  // this (b, h)'s rows
+  const char* kp = k_in + plane;
+  const char* vp = v_in + plane;
   const float* mrow = mask + (long long)b * S;
 
   float q[D];
   if (live) {
-    const char* qr = base + qi * row_bytes + (long long)h * D * E::BYTES;
+    const char* qr = q_in + plane + qi * in.s;
 #pragma unroll
     for (int c = 0; c < CHUNKS; ++c) {
       float f[V];
@@ -147,9 +167,8 @@ flat_attention_fwd_kernel(const char* __restrict__ qkv,
       const int r = idx / CHUNKS, c = idx % CHUNKS;
       const int j = k0 + r;
       if (j < S) {
-        const char* row = base + j * row_bytes + c * 16;
-        load16<BF16>(row + k_off, &Ks[r][c * V]);
-        load16<BF16>(row + v_off, &Vs[r][c * V]);
+        load16<BF16>(kp + j * in.s + c * 16, &Ks[r][c * V]);
+        load16<BF16>(vp + j * in.s + c * 16, &Vs[r][c * V]);
       } else {
 #pragma unroll
         for (int i = 0; i < V; ++i) { Ks[r][c * V + i] = 0.f; Vs[r][c * V + i] = 0.f; }
@@ -210,8 +229,7 @@ flat_attention_fwd_kernel(const char* __restrict__ qkv,
   }
 
   if (live) {
-    char* orow = out + ((long long)b * S + qi) * C * E::BYTES +
-                 (long long)h * D * E::BYTES;
+    char* orow = out + b * os.b + h * os.h + qi * os.s;
 #pragma unroll
     for (int c = 0; c < CHUNKS; ++c) {
       float f[V];
@@ -223,23 +241,39 @@ flat_attention_fwd_kernel(const char* __restrict__ qkv,
 }
 
 template <bool BF16, int D>
-void launch(const void* qkv, const float* mask, void* out, int B, int S, int H,
+void launch(const void* q, const void* k, const void* v, const float* mask,
+            void* out, int B, int S, int H, Strides in, Strides os,
             float scale, cudaStream_t stream) {
   const dim3 grid((S + QT - 1) / QT, H, B);
-  flat_attention_fwd_kernel<BF16, D><<<grid, QT, 0, stream>>>(
-      static_cast<const char*>(qkv), mask, static_cast<char*>(out), S, H,
+  attention_fwd_kernel<BF16, D><<<grid, QT, 0, stream>>>(
+      static_cast<const char*>(q), static_cast<const char*>(k),
+      static_cast<const char*>(v), mask, static_cast<char*>(out), S, in, os,
       scale);
 }
 
-template <bool BF16>
-int dispatch_d(const void* qkv, const float* mask, void* out, int B, int S,
-               int H, int D, float scale, cudaStream_t stream) {
+// Element strides -> byte strides, then the head-dim instantiation.
+int dispatch(const void* q, const void* k, const void* v, const void* mask,
+             void* out, int B, int S, int H, int D, int bf16, Strides in,
+             Strides os, float scale, void* stream) {
+  const long long bytes = bf16 ? 2 : 4;
+  in = {in.b * bytes, in.h * bytes, in.s * bytes};
+  os = {os.b * bytes, os.h * bytes, os.s * bytes};
+  const float* m = static_cast<const float*>(mask);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define MLA_CASE(DD)                                                        \
+  case DD:                                                                  \
+    if (bf16)                                                               \
+      launch<true, DD>(q, k, v, m, out, B, S, H, in, os, scale, st);        \
+    else                                                                    \
+      launch<false, DD>(q, k, v, m, out, B, S, H, in, os, scale, st);       \
+    break;
   switch (D) {
-    case 16: launch<BF16, 16>(qkv, mask, out, B, S, H, scale, stream); break;
-    case 64: launch<BF16, 64>(qkv, mask, out, B, S, H, scale, stream); break;
-    case 80: launch<BF16, 80>(qkv, mask, out, B, S, H, scale, stream); break;
+    MLA_CASE(16)
+    MLA_CASE(64)
+    MLA_CASE(80)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef MLA_CASE
   return (int)cudaGetLastError();
 }
 
@@ -251,8 +285,21 @@ int dispatch_d(const void* qkv, const float* mask, void* out, int B, int S,
 extern "C" int mla_flat_attention_fwd(const void* qkv, const void* mask,
                                       void* out, int B, int S, int H, int D,
                                       int bf16, float scale, void* stream) {
-  const float* m = static_cast<const float*>(mask);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch_d<true>(qkv, m, out, B, S, H, D, scale, st)
-              : dispatch_d<false>(qkv, m, out, B, S, H, D, scale, st);
+  const long long C = (long long)H * D;
+  const char* base = static_cast<const char*>(qkv);
+  const long long third = C * (bf16 ? 2 : 4);
+  return dispatch(base, base + third, base + 2 * third, mask, out, B, S, H, D,
+                  bf16, {S * 3 * C, D, 3 * C}, {S * C, D, C}, scale, stream);
+}
+
+// q, k, v, out: (B, H, S, D) contiguous, fp32 or bf16, 16-byte aligned, all
+// of one type; mask: (B, S) fp32, 1 = padded key. Launches on `stream` and
+// returns cudaGetLastError() (0 = launched).
+extern "C" int mla_head_attention_fwd(const void* q, const void* k,
+                                      const void* v, const void* mask,
+                                      void* out, int B, int S, int H, int D,
+                                      int bf16, float scale, void* stream) {
+  const Strides hs = {(long long)H * S * D, (long long)S * D, D};
+  return dispatch(q, k, v, mask, out, B, S, H, D, bf16, hs, hs, scale,
+                  stream);
 }

@@ -1,11 +1,20 @@
-// Flat-layout masked attention backward for Hopper (sm_90a), plain C interface.
+// Masked attention backward for Hopper (sm_90a), plain C interface, on two
+// memory layouts that share one pair of kernels.
 //
-// Replaces mla_tpu/ops/attention.py:_attn_bwd_kernel_flat (the Pallas TPU
-// kernel behind flash_attention_flat_bwd, tied to the forward by the custom
-// VJP _flat_mha). It reads q, k and v by column out of the fused qkv
-// projection (B, S, 3C) and the output gradient dO (B, S, C), and writes
+// Flat layout: replaces mla_tpu/ops/attention.py:_attn_bwd_kernel_flat (the
+// Pallas TPU kernel behind flash_attention_flat_bwd, tied to the forward by
+// the custom VJP _flat_mha). It reads q, k and v by column out of the fused
+// qkv projection (B, S, 3C) and the output gradient dO (B, S, C), and writes
 // d(qkv) (B, S, 3C) in the forward's column layout: dq at column h*D, dk at
-// C + h*D, dv at 2C + h*D. No concatenate runs after it.
+// C + h*D, dv at 2C + h*D. No concatenate runs after it
+// (mla_flat_attention_bwd).
+//
+// Head layout: replaces mla_tpu/ops/attention.py:_attn_bwd_kernel_heads (the
+// Pallas TPU kernel behind flash_attention_bwd, tied to flash_attention by
+// the custom VJP _flash_mha): q, k, v, dO, dq, dk and dv are (B, H, S, D)
+// tensors (mla_head_attention_bwd). The layouts differ only in the strides
+// of each (batch row, head) plane, which the kernels take; the arithmetic is
+// the same for both.
 //
 // Semantics: the VJP of attention_reference with the TPU kernel's rounding
 // points. Per head, scores = (q . k) * scale in fp32; where mask[b, key] > 0
@@ -15,8 +24,10 @@
 // 0 there, even on a row whose keys are all masked), rounded to the input
 // type before the dq and dk products; P rounded to the input type before the
 // dv product; fp32 accumulation. Keys and queries stop at S: no padding key
-// enters a sum (the TPU kernel pads S to a multiple of 8 and differs on a
-// fully masked row).
+// enters a sum (the TPU kernels pad S to a multiple of 8 and differ on a
+// fully masked row). There is no length limit: the TPU kernel holds three
+// (S, S) fp32 blocks in VMEM and the JAX package takes the VJP of the
+// reference beyond 1024 tokens; these kernels stream tiles at every S.
 //
 // Design. The TPU kernel holds a head's whole (S, S) score block in VMEM. A
 // Hopper block cannot, and blocks run in no order, so the work is split
@@ -55,6 +66,28 @@ constexpr int TPR = 4;          // threads per row
 constexpr int NT = RT * TPR;    // threads per block
 constexpr int CH = 8;           // keys per online-softmax update
 constexpr float kMasked = -1e7f;
+
+// Byte strides of one operand: batch row, head, sequence row.
+struct Strides {
+  long long b, h, s;
+};
+
+// The operands of both launches: q, k, v and their gradients share the
+// strides `in`, dO has `os`.
+struct Args {
+  const char* q;
+  const char* k;
+  const char* v;
+  const char* dout;
+  const float* mask;
+  char* dq;
+  char* dk;
+  char* dv;
+  float* stats;
+  int S, H;
+  Strides in, os;
+  float scale;
+};
 
 // Element formats, moved 4 elements at a time.
 template <bool BF16> struct Elem;
@@ -105,20 +138,18 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// Rows r0 .. r0+TT-1 of one head's D columns (starting at byte `col`) of a
-// (B, S, *) row-major slab at `base` with `row_bytes` per row -> fp32 tile;
-// rows past S are zero.
+// Rows r0 .. r0+TT-1 of one (batch row, head) plane of D-element rows at
+// `plane`, `row_bytes` apart -> fp32 tile; rows past S are zero.
 template <bool BF16, int D>
-__device__ __forceinline__ void load_tile(float (*dst)[D], const char* base,
-                                          long long row_bytes, long long col,
-                                          int r0, int S) {
+__device__ __forceinline__ void load_tile(float (*dst)[D], const char* plane,
+                                          long long row_bytes, int r0, int S) {
   using E = Elem<BF16>;
   constexpr int C4 = D / 4;
   for (int idx = threadIdx.x; idx < TT * C4; idx += NT) {
     const int r = idx / C4, c = idx % C4;
     const int j = r0 + r;
     *reinterpret_cast<float4*>(&dst[r][4 * c]) =
-        j < S ? E::load4(base + j * row_bytes + col + 4 * c * E::BYTES)
+        j < S ? E::load4(plane + j * row_bytes + 4 * c * E::BYTES)
               : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
@@ -187,12 +218,7 @@ __device__ __forceinline__ void axpy_part(float* own, float a, const float* t,
 // Launch 1: per query row, max / sum / delta (to `stats`), then dq.
 template <bool BF16, int D>
 __global__ void __launch_bounds__(NT)
-flat_attention_bwd_dq_kernel(const char* __restrict__ qkv,
-                             const char* __restrict__ dout,
-                             const float* __restrict__ mask,
-                             char* __restrict__ dqkv,
-                             float* __restrict__ stats, int S, int H,
-                             float scale) {
+attention_bwd_dq_kernel(const Args args) {
   using E = Elem<BF16>;
   constexpr int NC = D / (4 * TPR);
   static_assert(D % (4 * TPR) == 0, "head dim must split into 4 quarters");
@@ -201,29 +227,27 @@ flat_attention_bwd_dq_kernel(const char* __restrict__ qkv,
   __shared__ __align__(16) float Vs[TT][D];
   __shared__ float Ms[TT];
 
+  const int S = args.S;
+  const float scale = args.scale;
   const int part = threadIdx.x % TPR;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int qi = blockIdx.x * RT + threadIdx.x / TPR;
   const bool live = qi < S;
-  const int C = H * D;
-  const long long row3 = 3LL * C * E::BYTES;   // qkv / dqkv row stride
-  const long long row1 = (long long)C * E::BYTES;
-  const char* base = qkv + (long long)b * S * row3;
-  const char* obase = dout + (long long)b * S * row1;
-  const long long q_col = (long long)h * D * E::BYTES;
-  const long long k_col = (long long)(C + h * D) * E::BYTES;
-  const long long v_col = (long long)(2 * C + h * D) * E::BYTES;
-  const float* mrow = mask + (long long)b * S;
+  const long long plane = b * args.in.b + h * args.in.h;  // this (b, h)'s rows
+  const long long oplane = b * args.os.b + h * args.os.h;
+  const char* kp = args.k + plane;
+  const char* vp = args.v + plane;
+  const float* mrow = args.mask + (long long)b * S;
 
   float q[4 * NC], g[4 * NC];
-  load_own<BF16, D>(q, base + qi * row3 + q_col, part, live);
-  load_own<BF16, D>(g, obase + qi * row1 + q_col, part, live);
+  load_own<BF16, D>(q, args.q + plane + qi * args.in.s, part, live);
+  load_own<BF16, D>(g, args.dout + oplane + qi * args.os.s, part, live);
 
   auto load_kv = [&](int k0) {
     __syncthreads();  // the previous tile has been read by every thread
-    load_tile<BF16, D>(Ks, base, row3, k_col, k0, S);
-    load_tile<BF16, D>(Vs, base, row3, v_col, k0, S);
+    load_tile<BF16, D>(Ks, kp, args.in.s, k0, S);
+    load_tile<BF16, D>(Vs, vp, args.in.s, k0, S);
     for (int r = threadIdx.x; r < TT; r += NT)
       Ms[r] = k0 + r < S ? mrow[k0 + r] : 0.f;
     __syncthreads();
@@ -264,11 +288,11 @@ flat_attention_bwd_dq_kernel(const char* __restrict__ qkv,
   }
   const float delta = a / l;
   if (live && part == 0) {
-    const long long n = (long long)gridDim.z * H * S;
-    const long long i = ((long long)b * H + h) * S + qi;
-    stats[i] = m;
-    stats[n + i] = l;
-    stats[2 * n + i] = delta;
+    const long long n = (long long)gridDim.z * args.H * S;
+    const long long i = ((long long)b * args.H + h) * S + qi;
+    args.stats[i] = m;
+    args.stats[n + i] = l;
+    args.stats[2 * n + i] = delta;
   }
 
   // sweep 2: dq = scale * sum_j ds_ij k_j
@@ -287,19 +311,13 @@ flat_attention_bwd_dq_kernel(const char* __restrict__ qkv,
       axpy_part<D>(dq, ds, Ks[r], part);
     }
   }
-  if (live) store_own<BF16, D>(dqkv + (long long)b * S * row3 + qi * row3 +
-                                   q_col, dq, part, scale);
+  if (live) store_own<BF16, D>(args.dq + plane + qi * args.in.s, dq, part, scale);
 }
 
 // Launch 2: per key row, dk and dv over all queries (reads `stats`).
 template <bool BF16, int D>
 __global__ void __launch_bounds__(NT)
-flat_attention_bwd_dkdv_kernel(const char* __restrict__ qkv,
-                               const char* __restrict__ dout,
-                               const float* __restrict__ mask,
-                               char* __restrict__ dqkv,
-                               const float* __restrict__ stats, int S, int H,
-                               float scale) {
+attention_bwd_dkdv_kernel(const Args args) {
   using E = Elem<BF16>;
   constexpr int NC = D / (4 * TPR);
   static_assert(D % (4 * TPR) == 0, "head dim must split into 4 quarters");
@@ -308,33 +326,29 @@ flat_attention_bwd_dkdv_kernel(const char* __restrict__ qkv,
   __shared__ __align__(16) float Gs[TT][D];
   __shared__ float Sm[TT], Sl[TT], Sd[TT];
 
+  const int S = args.S;
+  const float scale = args.scale;
   const int part = threadIdx.x % TPR;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kj = blockIdx.x * RT + threadIdx.x / TPR;
   const bool live = kj < S;
-  const int C = H * D;
-  const long long row3 = 3LL * C * E::BYTES;
-  const long long row1 = (long long)C * E::BYTES;
-  const char* base = qkv + (long long)b * S * row3;
-  const char* obase = dout + (long long)b * S * row1;
-  const long long q_col = (long long)h * D * E::BYTES;
-  const long long k_col = (long long)(C + h * D) * E::BYTES;
-  const long long v_col = (long long)(2 * C + h * D) * E::BYTES;
-  const bool masked = live && mask[(long long)b * S + kj] > 0.f;
-  const long long n = (long long)gridDim.z * H * S;
-  const float* st = stats + ((long long)b * H + h) * S;
+  const long long plane = b * args.in.b + h * args.in.h;  // this (b, h)'s rows
+  const long long oplane = b * args.os.b + h * args.os.h;
+  const bool masked = live && args.mask[(long long)b * S + kj] > 0.f;
+  const long long n = (long long)gridDim.z * args.H * S;
+  const float* st = args.stats + ((long long)b * args.H + h) * S;
 
   float k[4 * NC], v[4 * NC], dk[4 * NC], dv[4 * NC];
-  load_own<BF16, D>(k, base + kj * row3 + k_col, part, live);
-  load_own<BF16, D>(v, base + kj * row3 + v_col, part, live);
+  load_own<BF16, D>(k, args.k + plane + kj * args.in.s, part, live);
+  load_own<BF16, D>(v, args.v + plane + kj * args.in.s, part, live);
 #pragma unroll
   for (int i = 0; i < 4 * NC; ++i) { dk[i] = 0.f; dv[i] = 0.f; }
 
   for (int i0 = 0; i0 < S; i0 += TT) {
     __syncthreads();
-    load_tile<BF16, D>(Qs, base, row3, q_col, i0, S);
-    load_tile<BF16, D>(Gs, obase, row1, q_col, i0, S);
+    load_tile<BF16, D>(Qs, args.q + plane, args.in.s, i0, S);
+    load_tile<BF16, D>(Gs, args.dout + oplane, args.os.s, i0, S);
     for (int r = threadIdx.x; r < TT; r += NT) {
       const bool in = i0 + r < S;
       Sm[r] = in ? st[i0 + r] : 0.f;
@@ -354,38 +368,36 @@ flat_attention_bwd_dkdv_kernel(const char* __restrict__ qkv,
     }
   }
   if (live) {
-    char* row = dqkv + (long long)b * S * row3 + kj * row3;
-    store_own<BF16, D>(row + k_col, dk, part, scale);
-    store_own<BF16, D>(row + v_col, dv, part, 1.f);
+    store_own<BF16, D>(args.dk + plane + kj * args.in.s, dk, part, scale);
+    store_own<BF16, D>(args.dv + plane + kj * args.in.s, dv, part, 1.f);
   }
 }
 
 template <bool BF16, int D>
-int launch(const void* qkv, const void* dout, const float* mask, void* dqkv,
-           float* stats, int B, int S, int H, float scale,
-           cudaStream_t stream) {
-  const dim3 grid((S + RT - 1) / RT, H, B);
-  flat_attention_bwd_dq_kernel<BF16, D><<<grid, NT, 0, stream>>>(
-      static_cast<const char*>(qkv), static_cast<const char*>(dout), mask,
-      static_cast<char*>(dqkv), stats, S, H, scale);
+int launch(const Args& a, int B, cudaStream_t stream) {
+  const dim3 grid((a.S + RT - 1) / RT, a.H, B);
+  attention_bwd_dq_kernel<BF16, D><<<grid, NT, 0, stream>>>(a);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flat_attention_bwd_dkdv_kernel<BF16, D><<<grid, NT, 0, stream>>>(
-      static_cast<const char*>(qkv), static_cast<const char*>(dout), mask,
-      static_cast<char*>(dqkv), stats, S, H, scale);
+  attention_bwd_dkdv_kernel<BF16, D><<<grid, NT, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <bool BF16>
-int dispatch_d(const void* qkv, const void* dout, const float* mask,
-               void* dqkv, float* stats, int B, int S, int H, int D,
-               float scale, cudaStream_t st) {
+// Element strides -> byte strides, then the head-dim instantiation.
+int dispatch(Args a, int B, int D, int bf16, void* stream) {
+  const long long bytes = bf16 ? 2 : 4;
+  a.in = {a.in.b * bytes, a.in.h * bytes, a.in.s * bytes};
+  a.os = {a.os.b * bytes, a.os.h * bytes, a.os.s * bytes};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define MLA_CASE(DD) \
+  case DD: return bf16 ? launch<true, DD>(a, B, st) : launch<false, DD>(a, B, st);
   switch (D) {
-    case 16: return launch<BF16, 16>(qkv, dout, mask, dqkv, stats, B, S, H, scale, st);
-    case 64: return launch<BF16, 64>(qkv, dout, mask, dqkv, stats, B, S, H, scale, st);
-    case 80: return launch<BF16, 80>(qkv, dout, mask, dqkv, stats, B, S, H, scale, st);
-    default: return (int)cudaErrorInvalidValue;
+    MLA_CASE(16)
+    MLA_CASE(64)
+    MLA_CASE(80)
   }
+#undef MLA_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -398,9 +410,34 @@ extern "C" int mla_flat_attention_bwd(const void* qkv, const void* dout,
                                       const void* mask, void* dqkv,
                                       void* stats, int B, int S, int H, int D,
                                       int bf16, float scale, void* stream) {
-  const float* m = static_cast<const float*>(mask);
-  float* st = static_cast<float*>(stats);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch_d<true>(qkv, dout, m, dqkv, st, B, S, H, D, scale, s)
-              : dispatch_d<false>(qkv, dout, m, dqkv, st, B, S, H, D, scale, s);
+  const long long C = (long long)H * D;
+  const long long third = C * (bf16 ? 2 : 4);
+  const char* in = static_cast<const char*>(qkv);
+  char* out = static_cast<char*>(dqkv);
+  const Args a = {in, in + third, in + 2 * third,
+                  static_cast<const char*>(dout),
+                  static_cast<const float*>(mask), out, out + third,
+                  out + 2 * third, static_cast<float*>(stats), S, H,
+                  {S * 3 * C, D, 3 * C}, {S * C, D, C}, scale};
+  return dispatch(a, B, D, bf16, stream);
+}
+
+// q, k, v, dout: (B, H, S, D) contiguous, fp32 or bf16, all of one type,
+// 16-byte aligned; mask: (B, S) fp32, 1 = padded key; dq, dk, dv: (B, H, S,
+// D) of that type, fully written; stats: 3*B*H*S fp32 scratch. Launches
+// twice on `stream` and returns the first non-zero cudaGetLastError().
+extern "C" int mla_head_attention_bwd(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const void* mask, void* dq, void* dk,
+                                      void* dv, void* stats, int B, int S,
+                                      int H, int D, int bf16, float scale,
+                                      void* stream) {
+  const Strides hs = {(long long)H * S * D, (long long)S * D, D};
+  const Args a = {static_cast<const char*>(q), static_cast<const char*>(k),
+                  static_cast<const char*>(v),
+                  static_cast<const char*>(dout),
+                  static_cast<const float*>(mask), static_cast<char*>(dq),
+                  static_cast<char*>(dk), static_cast<char*>(dv),
+                  static_cast<float*>(stats), S, H, hs, hs, scale};
+  return dispatch(a, B, D, bf16, stream);
 }

@@ -523,3 +523,258 @@ def test_q8_wrappers_reject_what_they_cannot_launch():
     with pytest.raises(ValueError, match="int32 scalar"):
         q8_matmul_stacked(x64, torch.zeros(1, 128, 64, device="cuda",
                                            dtype=torch.int8), s[None], 0)
+
+
+# ------------------------------------------- B2f/B2b: (B, H, S, D) attention
+# The flat kernels' tolerances (above): forward fp32 atol 1e-5, bf16 2e-2;
+# backward atol + rtol * |want|, fp32 1e-5 + 1e-5, bf16 2e-2 + 1e-2.
+
+def _heads(torch, b, h, s, d, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(
+        np.float32)).to("cuda", dtype) for _ in range(4))
+    mask = np.zeros((b, s), np.float32)
+    for i, n in enumerate(rng.integers(1, s + 1, b)):
+        mask[i, n:] = 1.0               # text-style padding at the end
+    if b > 1:
+        mask[1, :] = 1.0                # one fully masked row
+    return q, k, v, do, torch.from_numpy(mask).cuda()
+
+
+@pytest.mark.parametrize("dtype_name,atol,rtol", [("float32", 1e-5, 1e-5),
+                                                  ("bfloat16", 2e-2, 1e-2)])
+@pytest.mark.parametrize("b,h,s,d", [(2, 4, 9, 16), (3, 4, 70, 16),
+                                     (8, 12, 257, 64), (2, 16, 257, 80),
+                                     (2, 3, 1100, 64)])
+def test_head_kernels_match_plain(b, h, s, d, dtype_name, atol, rtol):
+    """B2f against attention_reference and B2b against
+    attention_bwd_reference, a fully masked row included (its output is
+    the mean of V, its dq and dk are 0); S = 1100 is past the JAX package's
+    1024-token limit of its Pallas backward."""
+    torch = _cuda()
+    from mla_tpu_torch.device import set_matmul_precision
+    from mla_tpu_torch.ops.attention import (attention_bwd_reference,
+                                             attention_reference,
+                                             flash_attention,
+                                             flash_attention_bwd)
+
+    set_matmul_precision()
+    q, k, v, do, mask = _heads(torch, b, h, s, d, getattr(torch, dtype_name))
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    out = flash_attention(q, k, v, mask)
+    grads = flash_attention_bwd(q, k, v, do, mask)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = attention_reference(q, k, v, mask)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= atol, err
+    for got, w in zip(grads, attention_bwd_reference(q, k, v, do, mask)):
+        assert got.dtype == q.dtype and got.shape == q.shape
+        diff = (got.float() - w.float()).abs()
+        assert bool(torch.all(diff <= atol + rtol * w.float().abs())), \
+            diff.max().item()
+    if b > 1:
+        assert torch.all(grads[0][1] == 0) and torch.all(grads[1][1] == 0)
+
+
+def test_head_route_block_backward_on_cuda_matches_cpu():
+    """One M3AEBlock with the flat kernels off: on the card the forward and
+    backward go through B2f and B2b (never B1f/B1b) and every parameter's
+    gradient equals the plain path's on the CPU (fp32; atol 1e-4 + rtol
+    1e-4 over a block's GEMMs, as the flat route's test)."""
+    torch = _cuda()
+    from mla_tpu_torch.device import set_matmul_precision
+    from mla_tpu_torch.models.layers import M3AEBlock
+    from mla_tpu_torch.ops import attention
+
+    set_matmul_precision()
+    block = M3AEBlock(256, 4)           # head dim 64
+    block.reset_parameters(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(3)
+    x_np = rng.standard_normal((2, 9, 256)).astype(np.float32)
+    mask_np = np.zeros((2, 9), np.float32)
+    mask_np[0, 6:] = 1.0
+    kernels = (attention.flash_attention, attention.flash_attention_bwd,
+               attention.flash_attention_flat,
+               attention.flash_attention_flat_bwd)
+    attention.set_flat_attention(False)
+    try:
+        want, want_x = _block_grads(
+            block, torch.from_numpy(x_np).requires_grad_(),
+            torch.from_numpy(mask_np))
+        want = {n: g.clone() for n, g in want.items()}
+        block.zero_grad(set_to_none=True)
+        block.cuda()
+        before = [fn.launches for fn in kernels]
+        got, got_x = _block_grads(block,
+                                  torch.from_numpy(x_np).cuda()
+                                  .requires_grad_(),
+                                  torch.from_numpy(mask_np).cuda())
+        launched = [fn.launches - n for fn, n in zip(kernels, before)]
+    finally:
+        attention.set_flat_attention(True)
+    assert launched == [1, 1, 0, 0]
+    for n, g in want.items():
+        assert got[n] is not None, n
+        np.testing.assert_allclose(got[n].cpu().numpy(), g.numpy(),
+                                   atol=1e-4, rtol=1e-4, err_msg=n)
+    np.testing.assert_allclose(got_x.cpu().numpy(), want_x.numpy(),
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_head_wrappers_reject_what_they_cannot_launch():
+    torch = _cuda()
+    from mla_tpu_torch.ops.attention import flash_attention
+
+    q = torch.zeros(1, 2, 4, 32, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, q, q)
+    q = torch.zeros(1, 2, 4, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="must match q"):
+        flash_attention(q, q[:, :, :3], q)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2), q.transpose(1, 2),
+                        q.transpose(1, 2))
+
+
+# ------------------------------------------------- B7f/B7b: LN -> Dense
+# Tolerances (atol, rtol of the larger of the two values), by output: B7f's
+# fp32 outputs are sums over C products in another order than cuBLAS's; a
+# bf16 output rounds twice (the sum, then the sum plus the bias) and may
+# round the other way, up to two ulps of y where the bias cancels part of
+# the sum (plus 2^-7 of the largest bias), and an LN output whose fp32
+# statistics differ in the last place may round the other way too
+# (absolute 6e-3 in all). B7b's dx: two bf16 ulps (a difference of nearly
+# equal fp32 terms); its fp32 sums
+# over the rows (dscale, dbias, dW, dc) run one after another in the
+# kernels and pairwise in PyTorch (absolute 1e-2 at sums of |v| ~ 100-1000);
+# a bf16 dW also sums h's that round the other way, each moving it by |dy|
+# times one bf16 ulp of h (absolute 0.25). chip_smoke.py's LN_TOL.
+LN_TOL = {"float32": {"y": (1e-4, 1e-5), "dx": (1e-4, 1e-4),
+                      "ds": (1e-2, 1e-4), "db": (1e-2, 1e-4),
+                      "dw": (1e-2, 1e-4), "dc": (1e-2, 1e-4)},
+          "bfloat16": {"y": (6e-3, 2 * ULP), "dx": (2e-3, 2 * ULP),
+                       "ds": (1e-2, 1e-4), "db": (1e-2, 1e-4),
+                       "dw": (0.25, 1e-3), "dc": (1e-2, 1e-4)}}
+
+
+def _ln(torch, n, c, f, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(a.astype(np.float32)).to("cuda", dt)
+    return (t(rng.standard_normal((n, c)), dtype),
+            t(rng.standard_normal(c) * 0.1 + 1.0),
+            t(rng.standard_normal(c) * 0.1),
+            t(rng.standard_normal((f, c)) / np.sqrt(c)),
+            t(rng.standard_normal(f) * 0.1),
+            t(rng.standard_normal((n, f)), dtype))
+
+
+def _within(torch, got, want, tol, what):
+    atol, rtol = tol
+    diff = (got.float() - want.float()).abs()
+    big = torch.maximum(got.float().abs(), want.float().abs())
+    assert bool(torch.all(diff <= atol + rtol * big)), (what,
+                                                         diff.max().item())
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,c,f", [(257, 768, 2304), (1000, 768, 3072),
+                                   (37, 64, 96)])
+def test_ln_dense_kernels_match_plain(n, c, f, dtype_name):
+    """B7f against ln_dense_reference, B7b against ln_dense_bwd_reference
+    (every output), and B7b twice for bitwise equality (no atomics)."""
+    torch = _cuda()
+    from mla_tpu_torch.device import set_matmul_precision
+    from mla_tpu_torch.ops.fused_block import (ln_dense_bwd,
+                                               ln_dense_bwd_reference,
+                                               ln_dense_fwd,
+                                               ln_dense_reference)
+
+    set_matmul_precision()
+    dt = getattr(torch, dtype_name)
+    x, s, b, w, db, dy = _ln(torch, n, c, f, dt, seed=n)
+    before = (ln_dense_fwd.launches, ln_dense_bwd.launches)
+    y = ln_dense_fwd(x, s, b, w, db, 1e-5, dt)
+    got = ln_dense_bwd(x, s, b, w, dy, 1e-5, dt)
+    again = ln_dense_bwd(x, s, b, w, dy, 1e-5, dt)
+    torch.cuda.synchronize()
+    assert (ln_dense_fwd.launches, ln_dense_bwd.launches) == (
+        before[0] + 1, before[1] + 2)
+    assert y.dtype == dt and y.shape == (n, f)
+    tol = LN_TOL[dtype_name]
+    _within(torch, y, ln_dense_reference(x, s, b, w, db, 1e-5, dt), tol["y"],
+            "y")
+    want = ln_dense_bwd_reference(x, s, b, w, dy, 1e-5, dt)
+    for name, g, wt, g2 in zip(("dx", "ds", "db", "dw", "dc"), got, want,
+                               again):
+        assert g.dtype == wt.dtype and g.shape == wt.shape, name
+        _within(torch, g, wt, tol[name], name)
+        assert torch.equal(g, g2), name
+
+
+def test_ln_dense_fp32_input_bf16_compute():
+    """x in fp32 with a bf16 compute type (statistics on the raw fp32
+    input, the LN output rounded to bf16): y in bf16, dx in fp32."""
+    torch = _cuda()
+    from mla_tpu_torch.device import set_matmul_precision
+    from mla_tpu_torch.ops.fused_block import (ln_dense_bwd,
+                                               ln_dense_bwd_reference,
+                                               ln_dense_fwd,
+                                               ln_dense_reference)
+
+    set_matmul_precision()
+    x, s, b, w, db, dy = _ln(torch, 300, 768, 2304, torch.float32, seed=3)
+    dy = dy.to(torch.bfloat16)
+    bf = torch.bfloat16
+    y = ln_dense_fwd(x, s, b, w, db, 1e-5, bf)
+    assert y.dtype == bf
+    _within(torch, y, ln_dense_reference(x, s, b, w, db, 1e-5, bf),
+            LN_TOL["bfloat16"]["y"], "y")
+    got = ln_dense_bwd(x, s, b, w, dy, 1e-5, bf)
+    want = ln_dense_bwd_reference(x, s, b, w, dy, 1e-5, bf)
+    assert got[0].dtype == torch.float32
+    for name, g, wt in zip(("dx", "ds", "db", "dw", "dc"), got, want):
+        _within(torch, g, wt, LN_TOL["bfloat16"][name], name)
+
+
+def test_ln_dense_switch_on_cuda_reaches_the_kernels():
+    """ln_dense with the switch on: on a CUDA tensor LnDense launches B7f
+    forward and B7b backward, and the gradients come back in the
+    parameters' types; switch off, nothing launches."""
+    torch = _cuda()
+    from mla_tpu_torch.ops import fused_block as fbk
+
+    x, s, b, w, db, dy = _ln(torch, 2 * 33, 256, 512, torch.bfloat16, seed=4)
+    leaves = [x.view(2, 33, 256).requires_grad_()] + [
+        t.requires_grad_() for t in (s, b, w, db)]
+    for on, want in ((True, (1, 1)), (False, (0, 0))):
+        fbk.set_fused_ln_dense(on)
+        try:
+            before = (fbk.ln_dense_fwd.launches, fbk.ln_dense_bwd.launches)
+            y = fbk.ln_dense(*leaves, dtype=torch.bfloat16)
+            grads = torch.autograd.grad(y, leaves, dy.view(2, 33, 512))
+            torch.cuda.synchronize()
+        finally:
+            fbk.set_fused_ln_dense(False)
+        assert (fbk.ln_dense_fwd.launches - before[0],
+                fbk.ln_dense_bwd.launches - before[1]) == want
+        assert y.shape == (2, 33, 512) and y.dtype == torch.bfloat16
+        assert [g.dtype for g in grads] == [t.dtype for t in leaves]
+
+
+def test_ln_dense_wrappers_reject_what_they_cannot_launch():
+    torch = _cuda()
+    from mla_tpu_torch.ops.fused_block import ln_dense_bwd, ln_dense_fwd
+
+    x, s, b, w, db, dy = _ln(torch, 8, 48, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 32"):
+        ln_dense_fwd(x, s, b, w, db)
+    x, s, b, w, db, dy = _ln(torch, 8, 64, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="dy must be"):
+        ln_dense_bwd(x, s, b, w, dy.float())
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        ln_dense_fwd(x.half(), s, b, w, db)
