@@ -9,12 +9,18 @@ result line:
               no card, no run.
 2. build    — every CUDA source of the port compiled with nvcc for sm_90a,
               one nvcc per source, all started together; the ptxas reports
-              printed.
+              printed; the tensor-core instructions (HMMA for mma.sync,
+              HGMMA for wgmma) of each attention backward kernel function
+              counted in cuobjdump -sass, and every bf16 one (mma_bwd_*)
+              must have some.
 3. kernels  — each kernel against its plain PyTorch version on the card at
               the shapes the serving and training paths give it (and a few
               edge shapes), with the tolerance stated; kernel, plain and
               library times from CUDA events; the least time the card could
-              take. The 3x3 conv (B3) at the 8 CREMA-D ResNet-18 body shapes
+              take. The attention backward rows (B1b, B2b) also give their
+              TFLOP/s on the five products the bound counts and whether a
+              second call repeats the first bit for bit (it must). The 3x3
+              conv (B3) at the 8 CREMA-D ResNet-18 body shapes
               in bf16 and fp32 and one odd edge, and its dx through the
               Conv3x3 autograd Function against the plain version's
               autograd.
@@ -185,6 +191,8 @@ KERNEL_SOURCES = ("flat_attention", "flat_attention_bwd", "conv3x3",
 
 
 def phase_build():
+    """-> (build seconds, the backward library's tensor-core instruction
+    counts by kernel function)."""
     from mla_tpu_torch.ops import _build
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:   # nvcc each
@@ -194,7 +202,42 @@ def phase_build():
     for lib in libs:
         print(f"[build] ptxas report for {lib.name}:")
         print(lib.with_suffix(".log").read_text().strip())
-    return secs
+    sass = sass_mma_counts(libs[KERNEL_SOURCES.index("flat_attention_bwd")])
+    print("[build] tensor-core instructions (cuobjdump -sass) per backward "
+          "kernel function: " + json.dumps(sass), flush=True)
+    # the bf16 kernels (mma_bwd_*) must run their products on the tensor
+    # cores; the fp32 ones (fma_bwd_*) stay on the FMA pipes
+    bf16 = {k: v for k, v in sass.items() if k.startswith("mma_bwd_")}
+    check(len(bf16) == 2 * 3 and all(v["HMMA"] + v["HGMMA"] > 0
+                                     for v in bf16.values()),
+          f"a bf16 attention backward kernel has no tensor-core "
+          f"instruction: {sass}")
+    return secs, sass
+
+
+def sass_mma_counts(lib: Path) -> dict:
+    """HMMA (mma.sync) and HGMMA (wgmma) instructions in each attention
+    backward kernel function of a built library, by the toolkit's
+    cuobjdump -sass; the functions named as in the source,
+    'mma_bwd_dq_kernel<64>'."""
+    import re
+    from mla_tpu_torch.ops import _build
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    check(tool.exists(), f"cuobjdump not found beside nvcc: {tool}")
+    out = subprocess.run([str(tool), "-sass", str(lib)],
+                         capture_output=True, text=True, check=True).stdout
+    counts, cur = {}, None
+    for line in out.splitlines():
+        if "Function : " in line:
+            m = re.search(r"((?:mma|fma)_bwd_[a-z]+_kernel)I((?:Li\d+E)+)E",
+                          line)
+            args = ", ".join(re.findall(r"Li(\d+)E", m[2])) if m else ""
+            cur = None if m is None else counts.setdefault(
+                f"{m[1]}<{args}>", {"HMMA": 0, "HGMMA": 0})
+        elif cur is not None:
+            cur["HGMMA"] += "HGMMA" in line
+            cur["HMMA"] += "HMMA" in line
+    return counts
 
 
 # ---------------------------------------------------------------- phase 3
@@ -272,11 +315,15 @@ def attention_bwd_case(b, s, h, d, dtype, fully_masked_row=False, seed=0,
     mask = torch.from_numpy(mask_np).cuda()
     got = flash_attention_flat_bwd(qkv, do, mask, h)
     torch.cuda.synchronize()
+    # no atomics: a second call gives the same bits
+    repeat_bitwise = torch.equal(got, flash_attention_flat_bwd(qkv, do, mask,
+                                                               h))
     want = flat_attention_bwd_reference(qkv, do, mask, h)
     atol, rtol = TOL_BWD[dtype]
     diff = (got.float() - want.float()).abs()
     err = float(diff.max())
-    ok = bool(torch.all(diff <= atol + rtol * want.float().abs()))
+    ok = repeat_bitwise and bool(
+        torch.all(diff <= atol + rtol * want.float().abs()))
     if fully_masked_row:      # P = 1/S: dq = dk = 0, dv = mean of dO
         dv = do[-1].float().mean(dim=0)
         ok = ok and bool(torch.all(got[-1, :, :2 * c] == 0)) and bool(
@@ -293,10 +340,12 @@ def attention_bwd_case(b, s, h, d, dtype, fully_masked_row=False, seed=0,
     g = do.view(b, s, h, d).transpose(1, 2)
     bias = (mask * -1e7).to(dtype)[:, None, None, :]
 
-    library_ms, library_fwd_bwd_ms = time_sdpa_bwd(q, k, v, g, bias, reps)
+    library_ms, library_fwd_bwd_ms, library_device_ms = time_sdpa_bwd(
+        q, k, v, g, bias, reps)
     row = {"shape": [b, s, h, d], "dtype": str(dtype).replace("torch.", ""),
            "fully_masked_row": fully_masked_row, "max_abs_err": err,
-           "atol": atol, "rtol": rtol, "ok": ok,
+           "atol": atol, "rtol": rtol, "repeat_bitwise": repeat_bitwise,
+           "ok": ok,
            "ms": time_cuda(lambda: flash_attention_flat_bwd(qkv, do, mask, h),
                            reps),
            "plain_ms": time_cuda(
@@ -304,9 +353,11 @@ def attention_bwd_case(b, s, h, d, dtype, fully_masked_row=False, seed=0,
            "fwd_ms": time_cuda(lambda: flash_attention_flat(qkv, mask, h),
                                reps),
            "library_ms": library_ms, "library_fwd_bwd_ms": library_fwd_bwd_ms,
+           "library_device_ms": library_device_ms,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     row["fwd_plus_bwd_ms"] = row["fwd_ms"] + row["ms"]
+    row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
     print("[kernel] flat_attention_bwd " + json.dumps(row), flush=True)
     return row
 
@@ -314,15 +365,22 @@ def attention_bwd_case(b, s, h, d, dtype, fully_masked_row=False, seed=0,
 def time_sdpa_bwd(q, k, v, g, bias, reps):
     """Yardstick only, never called by the port: SDPA's backward alone (one
     autograd backward through a kept graph) and its forward + backward, on
-    an equivalent additive mask. -> (backward ms, forward + backward ms)."""
+    an equivalent additive mask; and the backward's device time per call
+    (its kernels under torch.profiler), which the host's enqueue of the
+    autograd backward cannot inflate. -> (backward ms, forward + backward
+    ms, backward device ms)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
     out = sdpa(q, k, v, attn_mask=bias)
-    bwd = time_cuda(lambda: torch.autograd.grad(out, (q, k, v), g,
-                                                retain_graph=True), reps)
+
+    def bwd_call():
+        return torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+
+    bwd = time_cuda(bwd_call, reps)
     both = time_cuda(lambda: torch.autograd.grad(
         sdpa(q, k, v, attn_mask=bias), (q, k, v), g), reps)
-    return bwd, both
+    device = profile_call(lambda: [bwd_call() for _ in range(reps)])
+    return bwd, both, device["device_ms"] / reps
 
 
 def head_inputs(b, s, h, d, dtype, fully_masked_row, seed):
@@ -383,11 +441,15 @@ def head_attention_bwd_case(b, s, h, d, dtype, fully_masked_row=False,
                                     seed)
     got = flash_attention_bwd(q, k, v, do, mask)
     torch.cuda.synchronize()
+    # no atomics: a second call gives the same bits
+    repeat_bitwise = all(torch.equal(x, y) for x, y in zip(
+        got, flash_attention_bwd(q, k, v, do, mask)))
     want = attention_bwd_reference(q, k, v, do, mask)
     atol, rtol = TOL_BWD[dtype]
     diffs = [(gt.float() - w.float()).abs() for gt, w in zip(got, want)]
-    ok = all(bool(torch.all(df <= atol + rtol * w.float().abs()))
-             for df, w in zip(diffs, want))
+    ok = repeat_bitwise and all(
+        bool(torch.all(df <= atol + rtol * w.float().abs()))
+        for df, w in zip(diffs, want))
     if fully_masked_row:      # P = 1/S: dq = dk = 0, dv = mean of dO
         ok = ok and bool(torch.all(got[0][-1] == 0)) and bool(
             torch.all(got[1][-1] == 0)) and bool(torch.allclose(
@@ -395,22 +457,27 @@ def head_attention_bwd_case(b, s, h, d, dtype, fully_masked_row=False,
                 .expand(h, s, d), atol=atol, rtol=rtol))
     es = q.element_size()
     bias = (mask * -1e7).to(dtype)[:, None, None, :]
-    library_ms, library_fwd_bwd_ms = time_sdpa_bwd(q, k, v, do, bias, reps)
+    library_ms, library_fwd_bwd_ms, library_device_ms = time_sdpa_bwd(
+        q, k, v, do, bias, reps)
     row = {"shape": [b, s, h, d], "dtype": str(dtype).replace("torch.", ""),
            "fully_masked_row": fully_masked_row,
            "max_abs_err": max(float(df.max()) for df in diffs),
-           "atol": atol, "rtol": rtol, "ok": ok,
+           "atol": atol, "rtol": rtol, "repeat_bitwise": repeat_bitwise,
+           "ok": ok,
            "ms": time_cuda(lambda: flash_attention_bwd(q, k, v, do, mask),
                            reps),
            "plain_ms": time_cuda(
                lambda: attention_bwd_reference(q, k, v, do, mask), reps),
            "fwd_ms": time_cuda(lambda: flash_attention(q, k, v, mask), reps),
            "library_ms": library_ms, "library_fwd_bwd_ms": library_fwd_bwd_ms,
+           "library_device_ms": library_device_ms,
            # q, k, v, dO and the mask read once, dq, dk, dv written once;
            # five (S, S, D) products per head (scores, dp, dq, dk, dv)
            **bound(7 * b * h * s * d * es + b * s * 4, 10 * b * h * s * s * d,
                    PEAK_FLOPS[dtype])}
     row["fwd_plus_bwd_ms"] = row["fwd_ms"] + row["ms"]
+    # on the five products the bound counts
+    row["tflops"] = 10 * b * h * s * s * d / (row["ms"] * 1e-3) / 1e12
     print("[kernel] head_attention_bwd " + json.dumps(row), flush=True)
     return row
 
@@ -1754,11 +1821,8 @@ def phase_head_training(flat_median_ms):
     whole phase, as the JAX driver runs every step and eval of a run whose
     mesh has a model axis; restored on the way out."""
     from mla_tpu_torch.ops import attention
-    attention.set_flat_attention(False)
-    try:
+    with attention.flat_attention_route(False):
         return head_training(flat_median_ms)
-    finally:
-        attention.set_flat_attention(True)
 
 
 def head_training(flat_median_ms):
@@ -1847,8 +1911,7 @@ def route_agreement(cfg, spec, batch, lr):
 
     out = {}
     for flat in (False, True):
-        attention.set_flat_attention(flat)
-        try:
+        with attention.flat_attention_route(flat):
             model = build_classifier(cfg, seed=0)
             st = create_train_state(model, cfg, spec, seed=0)
             before = attention_counts()
@@ -1856,8 +1919,6 @@ def route_agreement(cfg, spec, batch, lr):
                 st, batch, lr, 0)
             torch.cuda.synchronize()
             got = counts_since(before)
-        finally:
-            attention.set_flat_attention(False)
         used = ("B1f", "B1b") if flat else ("B2f", "B2b")
         check(all(got[k] > 0 for k in used)
               and sum(got.values()) == sum(got[k] for k in used),
@@ -2001,7 +2062,7 @@ def main():
     from mla_tpu_torch.device import set_matmul_precision
     set_matmul_precision()      # fp32 plain versions in full fp32, no TF32
     t_start = time.perf_counter()
-    build_s = phase_build()
+    build_s, sass = phase_build()
     rows, bwd_rows = phase_kernels()
     head_rows, head_bwd_rows = phase_head_kernels()
     ln_rows, ln_bwd_rows = phase_ln_kernels()
@@ -2052,8 +2113,11 @@ def main():
                 # SDPA's backward alone; its forward + backward is set
                 # beside B1f + B1b
                 "library_ms": bwd["library_ms"],
+                "library_device_ms": bwd["library_device_ms"],
                 "library_fwd_bwd_ms": bwd["library_fwd_bwd_ms"],
                 "fwd_plus_bwd_ms": bwd["fwd_plus_bwd_ms"],
+                "tflops": bwd["tflops"],
+                "repeat_bitwise": all(r["repeat_bitwise"] for r in bwd_rows),
                 "max_abs_err_all": max(r["max_abs_err"] for r in bwd_rows),
                 "all_ok": all(r["ok"] for r in bwd_rows)}]
     conv = next(r for r in conv_rows
@@ -2127,8 +2191,11 @@ def main():
          "max_abs_err": hb["max_abs_err"], "ms": hb["ms"],
          "plain_ms": hb["plain_ms"], "bound_ms": hb["bound_ms"],
          "bound_by": hb["bound_by"], "library_ms": hb["library_ms"],
+         "library_device_ms": hb["library_device_ms"],
          "library_fwd_bwd_ms": hb["library_fwd_bwd_ms"],
          "fwd_plus_bwd_ms": hb["fwd_plus_bwd_ms"],
+         "tflops": hb["tflops"],
+         "repeat_bitwise": all(r["repeat_bitwise"] for r in head_bwd_rows),
          "max_abs_err_all": max(r["max_abs_err"] for r in head_bwd_rows),
          "all_ok": all(r["ok"] for r in head_bwd_rows)}]
 
@@ -2160,6 +2227,7 @@ def main():
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
         "device": smi, "torch": torch.__version__, "build_s": build_s,
+        "bwd_sass_mma": sass,
         "kernel_cases": rows, "bwd_kernel_cases": bwd_rows,
         "head_kernel_cases": head_rows, "head_bwd_kernel_cases": head_bwd_rows,
         "ln_kernel_cases": ln_rows, "ln_bwd_kernel_cases": ln_bwd_rows,

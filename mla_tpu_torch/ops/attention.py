@@ -32,6 +32,7 @@ at every length.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Optional
 
@@ -220,8 +221,8 @@ def flash_attention_flat_bwd(qkv, do, padding_mask, num_heads: int):
         raise ValueError("do must be contiguous and 16-byte aligned")
     mask = _kernel_mask(padding_mask, qkv, b, s)
     dqkv = torch.empty_like(qkv)
-    # per (b, head, query): row max, row sum and delta = sum_j p_ij dp_ij,
-    # written by the first pass and read by the second
+    # per (b, head, query): row max, row sum (its reciprocal in bf16) and
+    # delta = sum_j p_ij dp_ij, written by the first pass, read by the second
     stats = torch.empty(3 * b * num_heads * s, dtype=torch.float32,
                         device=qkv.device)
     lib = _bwd_lib()
@@ -402,6 +403,18 @@ _FLAT_ENABLED = True
 def set_flat_attention(enabled: bool):
     global _FLAT_ENABLED
     _FLAT_ENABLED = bool(enabled)
+
+
+@contextlib.contextmanager
+def flat_attention_route(enabled: bool = True):
+    """``set_flat_attention(enabled)`` for a with-block; the caller's
+    setting comes back on the way out, whatever the block raised."""
+    before = _FLAT_ENABLED
+    set_flat_attention(enabled)
+    try:
+        yield
+    finally:
+        set_flat_attention(before)
 
 
 def fused_attention_qkv(qkv, padding_mask: Optional[torch.Tensor],

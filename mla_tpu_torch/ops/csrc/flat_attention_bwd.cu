@@ -1,5 +1,5 @@
 // Masked attention backward for Hopper (sm_90a), plain C interface, on two
-// memory layouts that share one pair of kernels.
+// memory layouts that share one pair of kernels per element type.
 //
 // Flat layout: replaces mla_tpu/ops/attention.py:_attn_bwd_kernel_flat (the
 // Pallas TPU kernel behind flash_attention_flat_bwd, tied to the forward by
@@ -14,24 +14,32 @@
 // the custom VJP _flash_mha): q, k, v, dO, dq, dk and dv are (B, H, S, D)
 // tensors (mla_head_attention_bwd). The layouts differ only in the strides
 // of each (batch row, head) plane, which the kernels take; the arithmetic is
-// the same for both.
+// the same for both, so the two routes give the same bits.
 //
 // Semantics: the VJP of attention_reference with the TPU kernel's rounding
 // points. Per head, scores = (q . k) * scale in fp32; where mask[b, key] > 0
 // the scaled score is REPLACED by -1e7; P = softmax in fp32; dp = dO . v^T
-// and delta_i = sum_j p_ij dp_ij in fp32; ds = p * (dp - delta), 0 at a
-// masked key (the reference's mask replaces the score, so its gradient is
-// 0 there, even on a row whose keys are all masked), rounded to the input
-// type before the dq and dk products; P rounded to the input type before the
-// dv product; fp32 accumulation. Keys and queries stop at S: no padding key
-// enters a sum (the TPU kernels pad S to a multiple of 8 and differ on a
-// fully masked row). There is no length limit: the TPU kernel holds three
-// (S, S) fp32 blocks in VMEM and the JAX package takes the VJP of the
-// reference beyond 1024 tokens; these kernels stream tiles at every S.
+// and delta_i = sum_j p_ij dp_ij in fp32 (not dO . O: O is rounded); ds =
+// p * (dp - delta), 0 at a masked key (the reference's mask replaces the
+// score, so its gradient is 0 there, even on a row whose keys are all
+// masked), rounded to the input type before the dq and dk products; P
+// rounded to the input type before the dv product; fp32 accumulation. Keys
+// and queries stop at S: no padding key enters a sum (the TPU kernels pad S
+// to a multiple of 8 and differ on a fully masked row). There is no length
+// limit: the TPU kernel holds three (S, S) fp32 blocks in VMEM and the JAX
+// package takes the VJP of the reference beyond 1024 tokens; these kernels
+// stream tiles at every S, with one law at every length.
+//
+// Bound at the training shape (B=64, S=257, C=768, H=12, D=64, bf16): the
+// kernel must read qkv and dO and the mask and write d(qkv), 176.9 MB, i.e.
+// 52.8 us at 3.35 TB/s; its 10*B*H*S^2*D = 32.5 GFLOP (scores, dp, dq, dk,
+// dv) take 32.8 us at the bf16 tensor-core peak. So it is bound by memory
+// traffic.
 //
 // Design. The TPU kernel holds a head's whole (S, S) score block in VMEM. A
 // Hopper block cannot, and blocks run in no order, so the work is split
-// into two launches on the same stream, neither using atomics:
+// into two launches on the same stream, neither using atomics (the
+// gradients repeat bit for bit from call to call):
 //   1. query rows: one block per (64 queries, head, batch row). A first sweep
 //      over the keys gives each row's max, sum and delta with an online
 //      softmax (delta is rescaled with the sum); they go to a small fp32
@@ -39,20 +47,33 @@
 //   2. key rows: one block per (64 keys, head, batch row). One sweep over
 //      the queries, reading their max, sum and delta back, accumulates dk and
 //      dv for the block's keys.
-// Each row (query or key) belongs to 4 neighbouring threads, each holding a
-// quarter of the head dim in registers (so q, dO and dq, or k, v, dk and dv,
-// stay in registers at D = 80); dot products are summed across the 4 with
-// two warp shuffles. The streamed tiles (64 rows) sit in shared memory as
-// fp32 and are read as warp-wide broadcasts, the 4 quarters of a row in
-// interleaved 16-byte pieces so the reads do not conflict. The products run
-// on the FP32 FMA pipes, not the tensor cores: this is the simple first
-// version.
+// That is 9 (S, S, D) products a head: scores and dp in each of the three
+// sweeps, then dq, dk and dv.
 //
-// Bound at the training shape (B=64, S=257, C=768, H=12, D=64, bf16): the
-// kernel must read qkv and dO and the mask and write d(qkv), 176.9 MB, i.e.
-// 52.8 us at 3.35 TB/s; its 10*B*H*S^2*D = 32.5 GFLOP take 32.8 us at the
-// bf16 tensor-core peak. So it is bound by memory traffic; on the FMA pipes
-// used here (the recompute adds 2*B*H*S^2*D more) the operations dominate.
+// bf16 runs on the tensor cores (mma_bwd_*_kernel): each of a block's 4
+// warps owns 16 rows and holds their two operands (q and dO, or k and v) as
+// mma.sync m16n8k16 A fragments in registers, with its dq (or dk and dv)
+// accumulating in fp32 fragments. The streamed 64-row tiles (k and v, or q
+// and dO) stay bf16 in shared memory, rows padded by 16 bytes so ldmatrix
+// reads them without bank conflicts, and load with cp.async into two
+// buffers, the next tile while the current one is multiplied. A warp takes
+// the tile 32 keys (queries) at a time: the scores and dp (in the key
+// kernel their transposes, keys as rows) come out of the tensor cores as
+// fp32 accumulator fragments, become P and ds in registers, are rounded to
+// bf16 and feed the next product directly as its A fragment (ldmatrix.trans
+// gives the tile as B), so P and ds never touch shared or device memory.
+// Exponentials are taken base 2 (ex2.approx, as __expf does): a score is
+// one fma, s * scale*log2(e) + 0, or 0 * s + (-1e7*log2(e) at a masked key,
+// -inf past S), with the per-key multiplier and addend set once per 8 keys.
+// A ragged tail (S = 257 = 4*64 + 1) costs one 16-row step, not a tile: the
+// products stop at the last 16 keys (queries) that hold a real one, and a
+// warp whose 16 rows all lie past S only helps load.
+//
+// fp32 stays on the FP32 FMA pipes (fma_bwd_*_kernel), since the port runs
+// fp32 products in full fp32: each row (query or key) belongs to 4
+// neighbouring threads, each holding a quarter of the head dim in
+// registers; dot products are summed across the 4 with two warp shuffles;
+// the streamed fp32 tiles are read as warp-wide broadcasts.
 #include <math.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -60,11 +81,6 @@
 
 namespace {
 
-constexpr int RT = 64;          // rows (queries or keys) a block owns
-constexpr int TT = 64;          // rows per streamed shared-memory tile
-constexpr int TPR = 4;          // threads per row
-constexpr int NT = RT * TPR;    // threads per block
-constexpr int CH = 8;           // keys per online-softmax update
 constexpr float kMasked = -1e7f;
 
 // Byte strides of one operand: batch row, head, sequence row.
@@ -73,7 +89,9 @@ struct Strides {
 };
 
 // The operands of both launches: q, k, v and their gradients share the
-// strides `in`, dO has `os`.
+// strides `in`, dO has `os`. `stats` holds, per (batch row, head, query),
+// the row max, then the row sum, then delta, each as one B*H*S block; the
+// bf16 kernels keep the max of the scores times log2(e) and 1/sum.
 struct Args {
   const char* q;
   const char* k;
@@ -89,46 +107,25 @@ struct Args {
   float scale;
 };
 
-// Element formats, moved 4 elements at a time.
-template <bool BF16> struct Elem;
+// ============================================================ fp32: FMA
 
-template <> struct Elem<false> {  // fp32: 16 bytes
-  static constexpr int BYTES = 4;
-  __device__ static __forceinline__ float4 load4(const char* p) {
-    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-    return make_float4(__uint_as_float(u.x), __uint_as_float(u.y),
-                       __uint_as_float(u.z), __uint_as_float(u.w));
-  }
-  __device__ static __forceinline__ void store4(char* p, const float* f) {
-    *reinterpret_cast<uint4*>(p) =
-        make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
-                   __float_as_uint(f[2]), __float_as_uint(f[3]));
-  }
-  __device__ static __forceinline__ float round(float x) { return x; }
-};
+constexpr int RT = 64;          // rows (queries or keys) a block owns
+constexpr int TT = 64;          // rows per streamed shared-memory tile
+constexpr int TPR = 4;          // threads per row
+constexpr int NT = RT * TPR;    // threads per block
+constexpr int CH = 8;           // keys per online-softmax update
 
-template <> struct Elem<true> {  // bf16: 8 bytes
-  static constexpr int BYTES = 2;
-  __device__ static __forceinline__ float4 load4(const char* p) {
-    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-    return make_float4(__uint_as_float(u.x << 16),  // low half = lower index
-                       __uint_as_float(u.x & 0xffff0000u),
-                       __uint_as_float(u.y << 16),
-                       __uint_as_float(u.y & 0xffff0000u));
-  }
-  __device__ static __forceinline__ uint32_t pack2(float a, float b) {
-    const uint32_t lo = __bfloat16_as_ushort(__float2bfloat16_rn(a));
-    const uint32_t hi = __bfloat16_as_ushort(__float2bfloat16_rn(b));
-    return lo | (hi << 16);
-  }
-  __device__ static __forceinline__ void store4(char* p, const float* f) {
-    *reinterpret_cast<uint2*>(p) = make_uint2(pack2(f[0], f[1]),
-                                              pack2(f[2], f[3]));
-  }
-  __device__ static __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
-};
+__device__ __forceinline__ float4 load4(const char* p) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  return make_float4(__uint_as_float(u.x), __uint_as_float(u.y),
+                     __uint_as_float(u.z), __uint_as_float(u.w));
+}
+
+__device__ __forceinline__ void store4(char* p, const float* f) {
+  *reinterpret_cast<uint4*>(p) =
+      make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                 __float_as_uint(f[2]), __float_as_uint(f[3]));
+}
 
 // Sum over the 4 threads of a row (neighbouring lanes). Every lane of the
 // warp must call it.
@@ -140,46 +137,43 @@ __device__ __forceinline__ float row_sum(float x) {
 
 // Rows r0 .. r0+TT-1 of one (batch row, head) plane of D-element rows at
 // `plane`, `row_bytes` apart -> fp32 tile; rows past S are zero.
-template <bool BF16, int D>
+template <int D>
 __device__ __forceinline__ void load_tile(float (*dst)[D], const char* plane,
                                           long long row_bytes, int r0, int S) {
-  using E = Elem<BF16>;
   constexpr int C4 = D / 4;
   for (int idx = threadIdx.x; idx < TT * C4; idx += NT) {
     const int r = idx / C4, c = idx % C4;
     const int j = r0 + r;
     *reinterpret_cast<float4*>(&dst[r][4 * c]) =
-        j < S ? E::load4(plane + j * row_bytes + 4 * c * E::BYTES)
+        j < S ? load4(plane + j * row_bytes + 16 * c)
               : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
 // This thread's quarter of a row: 16-byte pieces g = c*TPR + part.
-template <bool BF16, int D>
+template <int D>
 __device__ __forceinline__ void load_own(float* dst, const char* row, int part,
                                          bool live) {
-  using E = Elem<BF16>;
   constexpr int NC = D / (4 * TPR);
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
-    const float4 f = live ? E::load4(row + 4 * (c * TPR + part) * E::BYTES)
+    const float4 f = live ? load4(row + 16 * (c * TPR + part))
                           : make_float4(0.f, 0.f, 0.f, 0.f);
     dst[4 * c] = f.x; dst[4 * c + 1] = f.y;
     dst[4 * c + 2] = f.z; dst[4 * c + 3] = f.w;
   }
 }
 
-template <bool BF16, int D>
+template <int D>
 __device__ __forceinline__ void store_own(char* row, const float* src,
                                           int part, float mul) {
-  using E = Elem<BF16>;
   constexpr int NC = D / (4 * TPR);
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     float f[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) f[i] = src[4 * c + i] * mul;
-    E::store4(row + 4 * (c * TPR + part) * E::BYTES, f);
+    store4(row + 16 * (c * TPR + part), f);
   }
 }
 
@@ -216,10 +210,9 @@ __device__ __forceinline__ void axpy_part(float* own, float a, const float* t,
 }
 
 // Launch 1: per query row, max / sum / delta (to `stats`), then dq.
-template <bool BF16, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-attention_bwd_dq_kernel(const Args args) {
-  using E = Elem<BF16>;
+fma_bwd_dq_kernel(const Args args) {
   constexpr int NC = D / (4 * TPR);
   static_assert(D % (4 * TPR) == 0, "head dim must split into 4 quarters");
 
@@ -241,13 +234,13 @@ attention_bwd_dq_kernel(const Args args) {
   const float* mrow = args.mask + (long long)b * S;
 
   float q[4 * NC], g[4 * NC];
-  load_own<BF16, D>(q, args.q + plane + qi * args.in.s, part, live);
-  load_own<BF16, D>(g, args.dout + oplane + qi * args.os.s, part, live);
+  load_own<D>(q, args.q + plane + qi * args.in.s, part, live);
+  load_own<D>(g, args.dout + oplane + qi * args.os.s, part, live);
 
   auto load_kv = [&](int k0) {
     __syncthreads();  // the previous tile has been read by every thread
-    load_tile<BF16, D>(Ks, kp, args.in.s, k0, S);
-    load_tile<BF16, D>(Vs, vp, args.in.s, k0, S);
+    load_tile<D>(Ks, kp, args.in.s, k0, S);
+    load_tile<D>(Vs, vp, args.in.s, k0, S);
     for (int r = threadIdx.x; r < TT; r += NT)
       Ms[r] = k0 + r < S ? mrow[k0 + r] : 0.f;
     __syncthreads();
@@ -307,18 +300,17 @@ attention_bwd_dq_kernel(const Args args) {
       const float sd = row_sum(dot_part<D>(q, Ks[r], part));
       const float dp = row_sum(dot_part<D>(g, Vs[r], part));
       const float p = expf(sd * scale - m) / l;
-      const float ds = E::round(p * (dp - delta));
+      const float ds = p * (dp - delta);
       axpy_part<D>(dq, ds, Ks[r], part);
     }
   }
-  if (live) store_own<BF16, D>(args.dq + plane + qi * args.in.s, dq, part, scale);
+  if (live) store_own<D>(args.dq + plane + qi * args.in.s, dq, part, scale);
 }
 
 // Launch 2: per key row, dk and dv over all queries (reads `stats`).
-template <bool BF16, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-attention_bwd_dkdv_kernel(const Args args) {
-  using E = Elem<BF16>;
+fma_bwd_dkdv_kernel(const Args args) {
   constexpr int NC = D / (4 * TPR);
   static_assert(D % (4 * TPR) == 0, "head dim must split into 4 quarters");
 
@@ -340,15 +332,15 @@ attention_bwd_dkdv_kernel(const Args args) {
   const float* st = args.stats + ((long long)b * args.H + h) * S;
 
   float k[4 * NC], v[4 * NC], dk[4 * NC], dv[4 * NC];
-  load_own<BF16, D>(k, args.k + plane + kj * args.in.s, part, live);
-  load_own<BF16, D>(v, args.v + plane + kj * args.in.s, part, live);
+  load_own<D>(k, args.k + plane + kj * args.in.s, part, live);
+  load_own<D>(v, args.v + plane + kj * args.in.s, part, live);
 #pragma unroll
   for (int i = 0; i < 4 * NC; ++i) { dk[i] = 0.f; dv[i] = 0.f; }
 
   for (int i0 = 0; i0 < S; i0 += TT) {
     __syncthreads();
-    load_tile<BF16, D>(Qs, args.q + plane, args.in.s, i0, S);
-    load_tile<BF16, D>(Gs, args.dout + oplane, args.os.s, i0, S);
+    load_tile<D>(Qs, args.q + plane, args.in.s, i0, S);
+    load_tile<D>(Gs, args.dout + oplane, args.os.s, i0, S);
     for (int r = threadIdx.x; r < TT; r += NT) {
       const bool in = i0 + r < S;
       Sm[r] = in ? st[i0 + r] : 0.f;
@@ -362,24 +354,497 @@ attention_bwd_dkdv_kernel(const Args args) {
       const float dp = row_sum(dot_part<D>(v, Gs[r], part));
       const float sc = masked ? kMasked : sd * scale;
       const float p = expf(sc - Sm[r]) / Sl[r];
-      const float ds = masked ? 0.f : E::round(p * (dp - Sd[r]));
-      axpy_part<D>(dv, E::round(p), Gs[r], part);
+      const float ds = masked ? 0.f : p * (dp - Sd[r]);
+      axpy_part<D>(dv, p, Gs[r], part);
       axpy_part<D>(dk, ds, Qs[r], part);
     }
   }
   if (live) {
-    store_own<BF16, D>(args.dk + plane + kj * args.in.s, dk, part, scale);
-    store_own<BF16, D>(args.dv + plane + kj * args.in.s, dv, part, 1.f);
+    store_own<D>(args.dk + plane + kj * args.in.s, dk, part, scale);
+    store_own<D>(args.dv + plane + kj * args.in.s, dv, part, 1.f);
   }
 }
 
-template <bool BF16, int D>
-int launch(const Args& a, int B, cudaStream_t stream) {
+// ====================================================== bf16: tensor cores
+
+constexpr int BR = 64;          // rows (queries or keys) a block owns
+constexpr int BT = 64;          // rows per streamed shared-memory tile
+constexpr int CK = 32;          // tile rows a warp takes at a time
+constexpr int NTH = 128;        // 4 warps of 16 rows
+// The bf16 kernels take exponentials base 2: scores scaled by scale*log2(e)
+// (a masked one replaced by -1e7*log2(e)), row maxima in that unit, so one
+// ex2 gives exp(s - m).
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kMasked2 = kMasked * kLog2e;
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const uint32_t a = __bfloat16_as_ushort(__float2bfloat16_rn(lo));
+  const uint32_t b = __bfloat16_as_ushort(__float2bfloat16_rn(hi));
+  return a | (b << 16);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(pred ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(pred ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 b16 matrices from shared memory; each lane gives one row address
+template <bool TRANS>
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const uint16_t* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  if constexpr (TRANS)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(s));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(s));
+}
+
+__device__ __forceinline__ float ex2(float x) {   // 2^x; 2^-inf = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// Rows r0 .. r0+BT-1 of one plane (D bf16 each, `row_bytes` apart) -> a
+// shared tile of rows D + 8 halves apart, by cp.async; rows past S are zero.
+template <int D>
+__device__ __forceinline__ void stage_rows(uint16_t* dst, const char* plane,
+                                           long long row_bytes, int r0,
+                                           int S) {
+  constexpr int P = D + 8, CPR = D / 8;   // 16-byte pieces per row
+  for (int idx = threadIdx.x; idx < BT * CPR; idx += NTH) {
+    const int r = idx / CPR, c = idx % CPR;
+    const int j = r0 + r;
+    const bool ok = j < S;
+    cp_async16(dst + r * P + 8 * c,
+               plane + (ok ? j : 0) * row_bytes + 16 * c, ok);
+  }
+}
+
+// src[r0 .. r0+BT-1] -> dst by cp.async; entries past S are zero
+__device__ __forceinline__ void stage_floats(float* dst, const float* src,
+                                             int r0, int S) {
+  for (int r = threadIdx.x; r < BT; r += NTH) {
+    const int j = r0 + r;
+    cp_async4(dst + r, src + (j < S ? j : 0), j < S);
+  }
+}
+
+// The A fragments (m16n8k16, one per 16 columns) of rows m0 .. m0+15 of a
+// plane; rows past S are zero.
+template <int D>
+__device__ __forceinline__ void load_a(uint32_t (*f)[4], const char* plane,
+                                       long long row_bytes, int m0, int S,
+                                       int g, int t) {
+  const int r0 = m0 + g, r1 = r0 + 8;
+  const char* p0 = plane + r0 * row_bytes + 4 * t;
+  const char* p1 = plane + r1 * row_bytes + 4 * t;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = 32 * kk;                  // byte column of the k-step
+    f[kk][0] = r0 < S ? __ldg(reinterpret_cast<const unsigned*>(p0 + c)) : 0u;
+    f[kk][1] = r1 < S ? __ldg(reinterpret_cast<const unsigned*>(p1 + c)) : 0u;
+    f[kk][2] = r0 < S ? __ldg(reinterpret_cast<const unsigned*>(p0 + c + 16))
+                      : 0u;
+    f[kk][3] = r1 < S ? __ldg(reinterpret_cast<const unsigned*>(p1 + c + 16))
+                      : 0u;
+  }
+}
+
+// acc[j] (j < CK/8: tile rows c0 + 8j ..) += A . T[c0 .., :]^T, A the 16 x D
+// fragments `a`, T a staged tile; 16 tile rows at a time while they hold
+// one of the nc real rows.
+template <int D>
+__device__ __forceinline__ void product_nt(float (*acc)[4],
+                                           const uint32_t (*a)[4],
+                                           const uint16_t* T, int c0, int nc,
+                                           int mi, int mr) {
+  constexpr int P = D + 8;
+#pragma unroll
+  for (int jp = 0; jp < CK / 16; ++jp) {
+    if (jp * 16 < nc) {
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd) {
+        // matrices: (n, k), (n, k + 8), (n + 8, k), (n + 8, k + 8)
+        uint32_t r[4];
+        ldsm_x4<false>(r, &T[(c0 + 16 * jp + (mi >> 1) * 8 + mr) * P +
+                             16 * kd + (mi & 1) * 8]);
+        mma_bf16(acc[2 * jp], a[kd], r[0], r[1]);
+        mma_bf16(acc[2 * jp + 1], a[kd], r[2], r[3]);
+      }
+    }
+  }
+}
+
+// acc[n] (n < D/8) += X . T[c0 .. c0+CK-1, :], X the 16 x CK fragments `x`
+// (one per 16 tile rows), 16 tile rows at a time while they hold one of the
+// nc real rows.
+template <int D>
+__device__ __forceinline__ void product_nn(float (*acc)[4],
+                                           const uint32_t (*x)[4],
+                                           const uint16_t* T, int c0, int nc,
+                                           int mi, int mr) {
+  constexpr int P = D + 8;
+#pragma unroll
+  for (int kk = 0; kk < CK / 16; ++kk) {
+    if (kk * 16 < nc) {
+#pragma unroll
+      for (int jd = 0; jd < D / 16; ++jd) {
+        // matrices: (k, n), (k + 8, n), (k, n + 8), (k + 8, n + 8)
+        uint32_t r[4];
+        ldsm_x4<true>(r, &T[(c0 + 16 * kk + (mi & 1) * 8 + mr) * P +
+                            16 * jd + (mi >> 1) * 8]);
+        mma_bf16(acc[2 * jd], x[kk], r[0], r[1]);
+        mma_bf16(acc[2 * jd + 1], x[kk], r[2], r[3]);
+      }
+    }
+  }
+}
+
+// fp32 accumulator fragments of a 16 x CK block -> its bf16 A fragments
+__device__ __forceinline__ void to_a(uint32_t (*x)[4], const float (*c)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < CK / 16; ++kk) {
+    x[kk][0] = pack_bf16x2(c[2 * kk][0], c[2 * kk][1]);
+    x[kk][1] = pack_bf16x2(c[2 * kk][2], c[2 * kk][3]);
+    x[kk][2] = pack_bf16x2(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    x[kk][3] = pack_bf16x2(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+// rows m0 + g and m0 + g + 8 of accumulator fragments (D/8 of them), times
+// mul, rounded to bf16 -> a plane; rows past S are not written
+template <int D>
+__device__ __forceinline__ void store_rows(char* plane, long long row_bytes,
+                                           int m0, int S,
+                                           const float (*acc)[4], float mul,
+                                           int g, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = m0 + g + 8 * r;
+    if (row < S) {
+      char* p = plane + row * row_bytes + 4 * t;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(p + 16 * j) =
+            pack_bf16x2(acc[j][2 * r] * mul, acc[j][2 * r + 1] * mul);
+    }
+  }
+}
+
+// Launch 1: per query row, max / 1/sum / delta (to `stats`), then dq.
+template <int D>
+__global__ void __launch_bounds__(NTH)
+mma_bwd_dq_kernel(const Args args) {
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int P = D + 8, NJ = CK / 8;
+  __shared__ __align__(16) uint16_t Ks[2][BT * P];
+  __shared__ __align__(16) uint16_t Vs[2][BT * P];
+  __shared__ __align__(16) float Ms[2][BT];
+
+  const int S = args.S;
+  const float scale2 = args.scale * kLog2e;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;      // mma fragment coordinates
+  const int mi = lane >> 3, mr = lane & 7;    // ldmatrix: matrix, its row
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * BR + 16 * warp; // this warp's first query
+  const bool active = q0 < S;                 // the same for the whole warp
+  const long long plane = b * args.in.b + h * args.in.h;
+  const long long oplane = b * args.os.b + h * args.os.h;
+  const float* mrow = args.mask + (long long)b * S;
+  const int nt = (S + BT - 1) / BT;
+
+  // tile `it` of the two sweeps (both walk the keys) -> buffer `buf`
+  auto stage = [&](int it, int buf) {
+    const int k0 = (it % nt) * BT;
+    stage_rows<D>(Ks[buf], args.k + plane, args.in.s, k0, S);
+    stage_rows<D>(Vs[buf], args.v + plane, args.in.s, k0, S);
+    stage_floats(Ms[buf], mrow, k0, S);
+    cp_async_commit();
+  };
+  stage(0, 0);
+
+  uint32_t qf[D / 16][4], gf[D / 16][4];
+  load_a<D>(qf, args.q + plane, args.in.s, q0, S, g, t);
+  load_a<D>(gf, args.dout + oplane, args.os.s, q0, S, g, t);
+
+  // rows g and g + 8: running max, this lane's share of the sum and of
+  // a = sum_j exp(s_j - m) dp_j; after sweep 1, 1/sum and delta
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, a[2] = {0.f, 0.f};
+  float dq[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+
+  for (int it = 0; it < 2 * nt; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < 2 * nt) {
+      stage(it + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (active && it == nt) {     // sweep 1 done: the rows' statistics
+      const long long n = (long long)gridDim.z * args.H * S;
+      const long long i0 = ((long long)b * args.H + h) * S;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float lt = row_sum(l[r]), at = row_sum(a[r]);
+        a[r] = at / lt;           // delta
+        l[r] = 1.f / lt;
+        const int row = q0 + g + 8 * r;
+        if (t == 0 && row < S) {
+          args.stats[i0 + row] = m[r];
+          args.stats[n + i0 + row] = l[r];
+          args.stats[2 * n + i0 + row] = a[r];
+        }
+      }
+    }
+    if (active) {
+      const int nk = min(BT, S - (it % nt) * BT);
+      const uint16_t* K = Ks[buf];
+      const uint16_t* V = Vs[buf];
+      const float* M = Ms[buf];
+      for (int c0 = 0; c0 < nk; c0 += CK) {
+        const int nc = min(CK, nk - c0);
+        float s[NJ][4], dp[NJ][4];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) { s[j][e] = 0.f; dp[j][e] = 0.f; }
+        product_nt<D>(s, qf, K, c0, nc, mi, mr);
+        product_nt<D>(dp, gf, V, c0, nc, mi, mr);
+        // this lane's keys (2 of every 8): the score is s * mul + add.
+        // Sweep 1: the scaled score, kMasked2 at a masked key, -inf past S.
+        // Sweep 2 needs ds alone, 0 at both: -inf.
+        float mul[NJ][2], add[NJ][2];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int col = c0 + 8 * j + 2 * t + u;
+            const bool past = col >= nk, masked = !past && M[col] > 0.f;
+            mul[j][u] = past || masked ? 0.f : scale2;
+            add[j][u] = past || (masked && it >= nt) ? -INFINITY
+                        : masked ? kMasked2 : 0.f;
+          }
+        if (it < nt) {            // sweep 1: online max, sum and a
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float mx = -INFINITY;
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+#pragma unroll
+              for (int u = 0; u < 2; ++u) {
+                float& x = s[j][2 * r + u];
+                x = fmaf(x, mul[j][u], add[j][u]);
+                mx = fmaxf(mx, x);
+              }
+            // key c0 is real, so every chunk has a finite maximum
+            const float mnew = fmaxf(m[r], quad_max(mx));
+            const float corr = ex2(m[r] - mnew);   // 0 on the first chunk
+            l[r] *= corr;
+            a[r] *= corr;
+            m[r] = mnew;
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+#pragma unroll
+              for (int u = 0; u < 2; ++u) {
+                const float ex = ex2(s[j][2 * r + u] - mnew);
+                l[r] += ex;
+                a[r] = fmaf(ex, dp[j][2 * r + u], a[r]);
+              }
+          }
+        } else {                  // sweep 2: ds, then dq += ds . K
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = e >> 1, u = e & 1;
+              const float p =
+                  ex2(fmaf(s[j][e], mul[j][u], add[j][u]) - m[r]) * l[r];
+              s[j][e] = p * (dp[j][e] - a[r]);
+            }
+          uint32_t dsf[CK / 16][4];
+          to_a(dsf, s);
+          product_nn<D>(dq, dsf, K, c0, nc, mi, mr);
+        }
+      }
+    }
+    __syncthreads();              // the buffer is free for the next stage
+  }
+  if (active)
+    store_rows<D>(args.dq + plane, args.in.s, q0, S, dq, args.scale, g, t);
+}
+
+// Launch 2: per key row, dk and dv over all queries (reads `stats`).
+template <int D>
+__global__ void __launch_bounds__(NTH)
+mma_bwd_dkdv_kernel(const Args args) {
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int P = D + 8, NJ = CK / 8;
+  __shared__ __align__(16) uint16_t Qs[2][BT * P];
+  __shared__ __align__(16) uint16_t Gs[2][BT * P];
+  __shared__ __align__(16) float Ss[2][3][BT];  // max, 1/sum, delta
+
+  const int S = args.S;
+  const float scale2 = args.scale * kLog2e;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int mi = lane >> 3, mr = lane & 7;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * BR + 16 * warp;  // this warp's first key
+  const bool active = k0 < S;
+  const long long plane = b * args.in.b + h * args.in.h;
+  const long long oplane = b * args.os.b + h * args.os.h;
+  const long long n = (long long)gridDim.z * args.H * S;
+  const float* st = args.stats + ((long long)b * args.H + h) * S;
+  const int nt = (S + BT - 1) / BT;
+
+  // query tile `it` -> buffer `buf`; a query past S has zero q and dO rows
+  // and zero statistics (1/sum = 0), so its P and ds are exactly 0
+  auto stage = [&](int it, int buf) {
+    const int i0 = it * BT;
+    stage_rows<D>(Qs[buf], args.q + plane, args.in.s, i0, S);
+    stage_rows<D>(Gs[buf], args.dout + oplane, args.os.s, i0, S);
+#pragma unroll
+    for (int w = 0; w < 3; ++w) stage_floats(Ss[buf][w], st + w * n, i0, S);
+    cp_async_commit();
+  };
+  stage(0, 0);
+
+  uint32_t kf[D / 16][4], vf[D / 16][4];
+  load_a<D>(kf, args.k + plane, args.in.s, k0, S, g, t);
+  load_a<D>(vf, args.v + plane, args.in.s, k0, S, g, t);
+  // rows g and g + 8: the score is s * mul + add (kMasked2 at a masked key)
+  float mul[2], add[2];
+  bool masked[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + g + 8 * r;
+    masked[r] = key < S && args.mask[(long long)b * S + key] > 0.f;
+    mul[r] = masked[r] ? 0.f : scale2;
+    add[r] = masked[r] ? kMasked2 : 0.f;
+  }
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) { dk[j][e] = 0.f; dv[j][e] = 0.f; }
+
+  for (int it = 0; it < nt; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < nt) {
+      stage(it + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (active) {
+      const int nq = min(BT, S - it * BT);
+      const uint16_t* Q = Qs[buf];
+      const uint16_t* G = Gs[buf];
+      const float* Sm = Ss[buf][0];
+      const float* Sl = Ss[buf][1];
+      const float* Sd = Ss[buf][2];
+      for (int c0 = 0; c0 < nq; c0 += CK) {
+        const int nc = min(CK, nq - c0);
+        // keys as rows: s^T = K . Q^T, dp^T = V . dO^T
+        float s[NJ][4], dp[NJ][4];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) { s[j][e] = 0.f; dp[j][e] = 0.f; }
+        product_nt<D>(s, kf, Q, c0, nc, mi, mr);
+        product_nt<D>(dp, vf, G, c0, nc, mi, mr);
+        // P^T into s, ds^T into dp (0 at a masked key)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int col = c0 + 8 * j + 2 * t + u;
+            const float mc = Sm[col], lc = Sl[col], dc = Sd[col];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int e = 2 * r + u;
+              const float p = ex2(fmaf(s[j][e], mul[r], add[r]) - mc) * lc;
+              dp[j][e] = masked[r] ? 0.f : p * (dp[j][e] - dc);
+              s[j][e] = p;
+            }
+          }
+        uint32_t pf[CK / 16][4], dsf[CK / 16][4];
+        to_a(pf, s);
+        to_a(dsf, dp);
+        product_nn<D>(dv, pf, G, c0, nc, mi, mr);   // dv += P^T . dO
+        product_nn<D>(dk, dsf, Q, c0, nc, mi, mr);  // dk += ds^T . Q
+      }
+    }
+    __syncthreads();
+  }
+  if (active) {
+    store_rows<D>(args.dk + plane, args.in.s, k0, S, dk, args.scale, g, t);
+    store_rows<D>(args.dv + plane, args.in.s, k0, S, dv, 1.f, g, t);
+  }
+}
+
+// ================================================================ launch
+
+template <int D>
+int launch(const Args& a, int B, bool bf16, cudaStream_t stream) {
+  if (bf16) {
+    const dim3 grid((a.S + BR - 1) / BR, a.H, B);
+    mma_bwd_dq_kernel<D><<<grid, NTH, 0, stream>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    mma_bwd_dkdv_kernel<D><<<grid, NTH, 0, stream>>>(a);
+    return (int)cudaGetLastError();
+  }
   const dim3 grid((a.S + RT - 1) / RT, a.H, B);
-  attention_bwd_dq_kernel<BF16, D><<<grid, NT, 0, stream>>>(a);
+  fma_bwd_dq_kernel<D><<<grid, NT, 0, stream>>>(a);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  attention_bwd_dkdv_kernel<BF16, D><<<grid, NT, 0, stream>>>(a);
+  fma_bwd_dkdv_kernel<D><<<grid, NT, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -389,14 +854,11 @@ int dispatch(Args a, int B, int D, int bf16, void* stream) {
   a.in = {a.in.b * bytes, a.in.h * bytes, a.in.s * bytes};
   a.os = {a.os.b * bytes, a.os.h * bytes, a.os.s * bytes};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define MLA_CASE(DD) \
-  case DD: return bf16 ? launch<true, DD>(a, B, st) : launch<false, DD>(a, B, st);
   switch (D) {
-    MLA_CASE(16)
-    MLA_CASE(64)
-    MLA_CASE(80)
+    case 16: return launch<16>(a, B, bf16 != 0, st);
+    case 64: return launch<64>(a, B, bf16 != 0, st);
+    case 80: return launch<80>(a, B, bf16 != 0, st);
   }
-#undef MLA_CASE
   return (int)cudaErrorInvalidValue;
 }
 

@@ -59,6 +59,7 @@ from mla_tpu_torch.models.classifiers import (cast_parameters_,
 from mla_tpu_torch.models.convert import (load_reference_checkpoint,
                                           q8_state_dict)
 from mla_tpu_torch.models.layers import Recorder, configure_q8
+from mla_tpu_torch.ops.attention import flat_attention_route
 
 # Per-sample input tensors each ported classifier family reads.
 FEATURE_KEYS: Dict[str, Tuple[str, ...]] = {
@@ -197,7 +198,7 @@ def calibrate_a8(cfg: MLAConfig, sd, features: Mapping, device=None,
     rows = min(_CALIBRATION_ROWS, len(next(iter(features.values()))))
     batch = {k: torch.from_numpy(np.asarray(features[k])[:rows]).to(dev)
              for k in feature_keys(model)}
-    with torch.inference_mode():
+    with torch.inference_mode(), flat_attention_route(True):
         model(batch)
     return errs, frozenset(s for s, e in errs.items() if e > threshold)
 
@@ -293,7 +294,9 @@ class ServingModel:
     Weights live on ``device`` in the compute dtype (meta's, unless
     ``compute_dtype`` is given), cast once at load; BatchNorm's running
     statistics stay float32. The model is in eval mode with no gradients,
-    so a request never changes a running statistic. Pads each request to
+    so a request never changes a running statistic. Every request takes
+    the flat attention route (``flat_attention_route``), whatever the
+    process's switch says. Pads each request to
     the smallest exported batch rung (valid=0 rows) and slices the result
     back.
     """
@@ -390,7 +393,10 @@ class ServingModel:
 
     def __call__(self, features: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         padded, n, _ = self.pad_request(features)
-        with torch.inference_mode():
+        # the flat attention route whatever the caller's switch says, as the
+        # JAX package traces its serving graph (mla_tpu/runtime/export.py
+        # export_from_driver); the caller's setting comes back afterwards
+        with torch.inference_mode(), flat_attention_route(True):
             batch = {k: torch.from_numpy(v).to(self.device)
                      for k, v in padded.items()}
             out_m, fused = eval_logits(self.model, self.cfg, batch,

@@ -84,13 +84,21 @@ def test_kernel_rejects_unbuilt_head_dims():
         flash_attention_flat(qkv, None, 2)
 
 
+# lengths around the backward's 64-row tiles and its 16-row steps, at each
+# built head dim
+RAGGED = [(s, d) for d in (16, 64, 80)
+          for s in (1, 15, 16, 17, 63, 64, 65, 257)]
+
+
 @pytest.mark.parametrize("dtype_name,atol,rtol", [("float32", 1e-5, 1e-5),
                                                   ("bfloat16", 2e-2, 1e-2)])
 @pytest.mark.parametrize("b,s,h,d", [(2, 9, 4, 16), (3, 70, 4, 16),
-                                     (8, 257, 12, 64), (2, 257, 16, 80)])
+                                     (8, 257, 12, 64), (2, 257, 16, 80)]
+                         + [(3, s, 2, d) for s, d in RAGGED])
 def test_bwd_kernel_matches_plain(b, s, h, d, dtype_name, atol, rtol):
     """B1b against flat_attention_bwd_reference, a fully masked row
-    included (its dq and dk are 0, its dv the mean of dO)."""
+    included (its dq and dk are 0, its dv the mean of dO), at the model's
+    shapes and at ragged lengths."""
     torch = _cuda()
     from mla_tpu_torch.device import set_matmul_precision
     from mla_tpu_torch.ops.attention import (flash_attention_flat_bwd,
@@ -545,12 +553,13 @@ def _heads(torch, b, h, s, d, dtype, seed=0):
                                                   ("bfloat16", 2e-2, 1e-2)])
 @pytest.mark.parametrize("b,h,s,d", [(2, 4, 9, 16), (3, 4, 70, 16),
                                      (8, 12, 257, 64), (2, 16, 257, 80),
-                                     (2, 3, 1100, 64)])
+                                     (2, 3, 1100, 64)]
+                         + [(3, 2, s, d) for s, d in RAGGED])
 def test_head_kernels_match_plain(b, h, s, d, dtype_name, atol, rtol):
     """B2f against attention_reference and B2b against
     attention_bwd_reference, a fully masked row included (its output is
     the mean of V, its dq and dk are 0); S = 1100 is past the JAX package's
-    1024-token limit of its Pallas backward."""
+    1024-token limit of its Pallas backward; ragged lengths as B1b's."""
     torch = _cuda()
     from mla_tpu_torch.device import set_matmul_precision
     from mla_tpu_torch.ops.attention import (attention_bwd_reference,
@@ -577,6 +586,88 @@ def test_head_kernels_match_plain(b, h, s, d, dtype_name, atol, rtol):
             diff.max().item()
     if b > 1:
         assert torch.all(grads[0][1] == 0) and torch.all(grads[1][1] == 0)
+
+
+def _flat_and_heads(torch, b, s, h, d, dtype, seed=0):
+    """Flat inputs (qkv, dO, mask) and the same values in (B, H, S, D)."""
+    qkv, mask = _inputs(torch, b, s, h, d, dtype, seed)
+    do = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (b, s, h * d)).astype(np.float32)).to("cuda", dtype)
+    q, k, v = qkv.view(b, s, 3, h, d).permute(2, 0, 3, 1, 4).contiguous()
+    g = do.view(b, s, h, d).transpose(1, 2).contiguous()
+    return (qkv, do, mask), (q, k, v, g, mask)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,d", [(8, 257, 12, 64), (2, 65, 16, 80),
+                                     (3, 17, 4, 16)])
+def test_bwd_kernels_repeat_bitwise(b, s, h, d, dtype_name):
+    """No atomics: two calls of B1b, and of B2b, give the same bits."""
+    torch = _cuda()
+    from mla_tpu_torch.ops.attention import (flash_attention_bwd,
+                                             flash_attention_flat_bwd)
+
+    flat, heads = _flat_and_heads(torch, b, s, h, d,
+                                  getattr(torch, dtype_name))
+    first = flash_attention_flat_bwd(*flat, h)
+    assert torch.equal(first, flash_attention_flat_bwd(*flat, h))
+    first = flash_attention_bwd(*heads)
+    for x, y in zip(first, flash_attention_bwd(*heads)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,d", [(8, 257, 12, 64), (2, 65, 16, 80),
+                                     (3, 17, 4, 16)])
+def test_head_and_flat_bwd_give_equal_bits(b, s, h, d, dtype_name):
+    """B2b and B1b run one kernel per element type on two layouts: the same
+    inputs give bit-equal d(qkv)."""
+    torch = _cuda()
+    from mla_tpu_torch.ops.attention import (flash_attention_bwd,
+                                             flash_attention_flat_bwd)
+
+    flat, heads = _flat_and_heads(torch, b, s, h, d,
+                                  getattr(torch, dtype_name))
+    dqkv = flash_attention_flat_bwd(*flat, h)
+    as_flat = torch.stack(flash_attention_bwd(*heads)).permute(
+        1, 3, 0, 2, 4).reshape(b, s, 3 * h * d)
+    assert torch.equal(dqkv, as_flat)
+
+
+def test_serving_on_cuda_takes_the_flat_route_with_the_switch_off(tmp_path):
+    """A served M3AE dispatch launches B1f once per block and encoder (2 x
+    2 for the debug model; 24 for base) and B2f never, with the process's
+    route switch left off; the switch is off again afterwards."""
+    torch = _cuda()
+    from mla_tpu_torch.core.config import MLAConfig
+    from mla_tpu_torch.models.classifiers import build_classifier
+    from mla_tpu_torch.ops import attention
+    from mla_tpu_torch.runtime.export import export_serving, load_serving
+
+    cfg = MLAConfig(dataset="Food101", lorb="m3ae", gs_flag=True,
+                    dynamic=True, m3ae_size="debug", image_size=32).validate()
+    model = build_classifier(cfg, seed=0, text_vocab_size=256)
+    rng = np.random.default_rng(4)
+    feats = {"token": rng.integers(0, 256, (2, 8)).astype(np.int32),
+             "padding_mask": np.zeros((2, 8), np.float32),
+             "image": rng.standard_normal((2, 3, 32, 32)).astype(np.float32)}
+    srv = load_serving(export_serving(cfg, model, str(tmp_path),
+                                      batch_sizes=(2,), example_batch=feats,
+                                      device="cpu"), device="cuda")
+    depth = len(srv.model.mae_a.encoder.blocks)
+    attention.set_flat_attention(False)
+    try:
+        before = (attention.flash_attention_flat.launches,
+                  attention.flash_attention.launches)
+        out = srv(feats)
+        torch.cuda.synchronize()
+        launched = (attention.flash_attention_flat.launches - before[0],
+                    attention.flash_attention.launches - before[1])
+        assert attention._FLAT_ENABLED is False
+    finally:
+        attention.set_flat_attention(True)
+    assert launched == (2 * depth, 0), launched
+    assert np.isfinite(out["fused"]).all()
 
 
 def test_head_route_block_backward_on_cuda_matches_cpu():
