@@ -1,6 +1,8 @@
 """Chip smoke test of the PyTorch port on one CUDA card (an H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --q8-compare DIR   # int8 rows and phase 8 of the
+                                             # checkout at DIR beside this one
 
 Phases, in order; any failure ends the script with a non-zero exit and no
 result line:
@@ -9,10 +11,12 @@ result line:
               no card, no run.
 2. build    — every CUDA source of the port compiled with nvcc for sm_90a,
               one nvcc per source, all started together; the ptxas reports
-              printed; the tensor-core instructions (HMMA for mma.sync,
-              HGMMA for wgmma) of each attention backward kernel function
-              counted in cuobjdump -sass, and every bf16 one (mma_bwd_*)
-              must have some.
+              printed; the tensor-core instructions (HMMA / IMMA for
+              mma.sync, HGMMA / IGMMA for wgmma) of each attention backward
+              and int8 GEMM kernel function counted in cuobjdump -sass:
+              every bf16 attention backward one (mma_bwd_*) must have some,
+              and every int8 GEMM one wgmma of its kind (HGMMA weight-only,
+              IGMMA W8A8), printed with its ptxas registers and spills.
 3. kernels  — each kernel against its plain PyTorch version on the card at
               the shapes the serving and training paths give it (and a few
               edge shapes), with the tolerance stated; kernel, plain and
@@ -75,7 +79,8 @@ result line:
               turns the 24 B6 launches into 48 more B5), B1f 24 times.
               Fused logits against the bf16 artifact's, the card against
               the CPU (plain versions, bf16 compute) on one n=3 request,
-              latency, rows/s, peak memory, artifact bytes against fp32.
+              latency, rows/s, peak memory, artifact bytes against fp32,
+              beside the bf16 artifact's latency at the same sizes.
 
 9. head-layout training — phase 5's classifier (same seeded weights) with
               the flat attention kernels off for the whole phase
@@ -99,7 +104,11 @@ B5 (weight-only and W8A8) at the four block sites of the base width (qkv
 768x2304, proj 768x768, fc1 768x3072, fc2 3072x768) and the image
 projection, at 257 and 16448 rows (rungs 1 and 64); B5 at layers 0, 11 and
 an out-of-range id (= 11); B6 at 257 and 16448 rows with the chooser's
-W8A8 group width. It holds the head-layout attention pair B2f/B2b at the
+W8A8 group width; each a second time for bitwise equality. Their ms is
+the median of five batches of CUDA-event timings (rung 1 is host-bound),
+device_ms the card's time per call with the host's enqueue hidden behind
+a spin kernel; a W8A8 row's ms includes its row quantization, also timed
+alone (quantize_ms), and every row gives its TOPS. It holds the head-layout attention pair B2f/B2b at the
 training shape (B=64, S=257, H=12, D=64) in bf16 and fp32, at D=80, at S=9
 with a fully masked row and at S=1360 (B=2, H=12), and B7f/B7b at both
 block sites, at 257 and 16448 rows and at 1000 (off the kernels' tiles),
@@ -190,9 +199,10 @@ KERNEL_SOURCES = ("flat_attention", "flat_attention_bwd", "conv3x3",
                   "q8_matmul", "q8_mlp", "ln_dense")
 
 
-def phase_build():
+def phase_build(check_q8_wgmma: bool = True):
     """-> (build seconds, the backward library's tensor-core instruction
-    counts by kernel function)."""
+    counts by kernel function, the int8 libraries' counts and ptxas
+    reports by kernel function)."""
     from mla_tpu_torch.ops import _build
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:   # nvcc each
@@ -202,7 +212,8 @@ def phase_build():
     for lib in libs:
         print(f"[build] ptxas report for {lib.name}:")
         print(lib.with_suffix(".log").read_text().strip())
-    sass = sass_mma_counts(libs[KERNEL_SOURCES.index("flat_attention_bwd")])
+    sass = sass_mma_counts(libs[KERNEL_SOURCES.index("flat_attention_bwd")],
+                           bwd_function)
     print("[build] tensor-core instructions (cuobjdump -sass) per backward "
           "kernel function: " + json.dumps(sass), flush=True)
     # the bf16 kernels (mma_bwd_*) must run their products on the tensor
@@ -212,15 +223,55 @@ def phase_build():
                                      for v in bf16.values()),
           f"a bf16 attention backward kernel has no tensor-core "
           f"instruction: {sass}")
-    return secs, sass
+    q8 = {}
+    for name in ("q8_matmul", "q8_mlp"):
+        lib = libs[KERNEL_SOURCES.index(name)]
+        counts = sass_mma_counts(lib, q8_function)
+        reports = ptxas_reports(lib.with_suffix(".log"), q8_function)
+        q8[name] = {f: {**counts.get(f, {}), **reports.get(f, {})}
+                    for f in sorted(set(counts) | set(reports))}
+        print(f"[build] {name}: wgmma (HGMMA bf16, IGMMA int8) and mma.sync "
+              f"(HMMA, IMMA) instructions and the ptxas report per int8 "
+              f"kernel function: " + json.dumps(q8[name]), flush=True)
+    if check_q8_wgmma:
+        # each int8 GEMM runs wgmma: bf16 (weight-only) HGMMA, int8 IGMMA
+        bad = {f: v for lib_ in q8.values() for f, v in lib_.items()
+               if v.get("IGMMA" if "A_BF16" not in f else "HGMMA", 0) == 0}
+        check(len(q8["q8_matmul"]) == 6 and len(q8["q8_mlp"]) == 11
+              and not bad, f"an int8 GEMM kernel function has no wgmma "
+                           f"instruction of its kind: {bad or q8}")
+    return secs, sass, q8
 
 
-def sass_mma_counts(lib: Path) -> dict:
-    """HMMA (mma.sync) and HGMMA (wgmma) instructions in each attention
-    backward kernel function of a built library, by the toolkit's
-    cuobjdump -sass; the functions named as in the source,
-    'mma_bwd_dq_kernel<64>'."""
+def bwd_function(mangled: str):
+    """'mma_bwd_dq_kernel<64>' for an attention backward kernel function's
+    mangled name, else None."""
     import re
+    m = re.search(r"((?:mma|fma)_bwd_[a-z]+_kernel)I((?:Li\d+E)+)E",
+                  mangled)
+    if m is None:
+        return None
+    return f"{m[1]}<{', '.join(re.findall(r'Li(\d+)E', m[2]))}>"
+
+
+Q8_KINDS = ("A_BF16", "A_S8", "A_S8G")       # csrc/q8_gemm.cuh AKind
+
+
+def q8_function(mangled: str):
+    """'gemm_kernel<A_S8, 256, EpiA8>' for an int8 GEMM kernel function's
+    mangled name, else None."""
+    import re
+    m = re.search(r"gemm_kernelILi(\d)ELi(\d+)E.*?\d(Epi[A-Za-z0-9]+?)E",
+                  mangled)
+    if m is None:
+        return None
+    return f"gemm_kernel<{Q8_KINDS[int(m[1])]}, {m[2]}, {m[3]}>"
+
+
+def sass_mma_counts(lib: Path, name_of) -> dict:
+    """Tensor-core instructions, HMMA / IMMA (mma.sync) and HGMMA / IGMMA
+    (wgmma), in each kernel function of a built library that ``name_of``
+    names, by the toolkit's cuobjdump -sass."""
     from mla_tpu_torch.ops import _build
     tool = Path(_build.nvcc_path()).parent / "cuobjdump"
     check(tool.exists(), f"cuobjdump not found beside nvcc: {tool}")
@@ -229,15 +280,39 @@ def sass_mma_counts(lib: Path) -> dict:
     counts, cur = {}, None
     for line in out.splitlines():
         if "Function : " in line:
-            m = re.search(r"((?:mma|fma)_bwd_[a-z]+_kernel)I((?:Li\d+E)+)E",
-                          line)
-            args = ", ".join(re.findall(r"Li(\d+)E", m[2])) if m else ""
-            cur = None if m is None else counts.setdefault(
-                f"{m[1]}<{args}>", {"HMMA": 0, "HGMMA": 0})
+            name = name_of(line)
+            cur = None if name is None else counts.setdefault(
+                name, {op: 0 for op in ("HMMA", "HGMMA", "IMMA", "IGMMA")})
         elif cur is not None:
-            cur["HGMMA"] += "HGMMA" in line
-            cur["HMMA"] += "HMMA" in line
+            for op in cur:
+                cur[op] += f" {op}." in line or f" {op} " in line
     return counts
+
+
+def ptxas_reports(log: Path, name_of) -> dict:
+    """Registers, spill bytes, stack frame and static shared memory of each
+    kernel function ``name_of`` names, from a build's ptxas -v report."""
+    import re
+    out, cur = {}, None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = name_of(m[1])
+            cur = None if name is None else out.setdefault(name, {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m[1]), spill_stores=int(m[2]),
+                       spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m[1])
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(sm[1]) if sm else 0
+    return out
 
 
 # ---------------------------------------------------------------- phase 3
@@ -654,13 +729,42 @@ def bound(nbytes, ops, peak):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def time_median(fn, reps: int, batches: int = 5) -> float:
+    """The median over `batches` of time_cuda's mean ms per call: the int8
+    rows at rung 1 are host-bound, and one batch of them reads the host's
+    spread as much as the kernel."""
+    return float(np.median([time_cuda(fn, reps) for _ in range(batches)]))
+
+
+def device_ms(fn, calls: int = 20) -> float:
+    """The card's time per call of fn with the host's enqueue hidden: the
+    stream first spins for about 10 ms while the host enqueues the calls,
+    and the events time the calls back to back. What an int8 row costs
+    the card when its time_median is the host's."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)          # GPU clock cycles
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def q8_gemm_case(site, m, a8, stacked, seed, reps=20):
     """B4 (or B5 on a 12-layer stack, at layers 0, 11 and 99 = 11) against
-    the plain version; times of the kernel, the plain version and a library
-    call (weight-only: dequantize + torch.matmul; W8A8: torch._int_mm)."""
+    the plain version, and a second call bit for bit the first; times of the
+    kernel (W8A8: with its row quantization, and that alone as
+    quantize_ms), the plain version and a library call (weight-only:
+    dequantize + torch.matmul; W8A8: torch._int_mm, without the
+    quantization)."""
     from mla_tpu_torch.ops.q8_matmul import (q8_matmul, q8_matmul_plain,
                                              q8_matmul_stacked,
-                                             quantize_rows)
+                                             quantize_rows,
+                                             quantize_rows_cuda)
     k, n = Q8_SITES[site]
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(
@@ -683,6 +787,7 @@ def q8_gemm_case(site, m, a8, stacked, seed, reps=20):
         errs = [ulp_err(got, q8_matmul_plain(x, w, sc, a8), Q8_ATOL[a8])]
         w11, s11 = w, sc
         kernel = lambda: q8_matmul(x, w, sc, a8)  # noqa: E731
+    same = bool(torch.equal(kernel(), kernel()))
     if a8:
         xq, _ = quantize_rows(x)
         wt = w11.t()
@@ -698,8 +803,10 @@ def q8_gemm_case(site, m, a8, stacked, seed, reps=20):
         lib_err = None
     row = {"site": site, "rows": m, "k": k, "n": n, "a8": a8,
            "stacked": stacked, "max_abs_err": max(e[0] for e in errs),
-           "ok": all(e[1] for e in errs),
-           "ms": time_cuda(kernel, reps),
+           "repeat_bitwise": same, "ok": all(e[1] for e in errs) and same,
+           "ms": time_median(kernel, reps), "device_ms": device_ms(kernel),
+           "quantize_ms": time_median(lambda: quantize_rows_cuda(x), reps)
+           if a8 else None,
            "plain_ms": time_cuda(
                lambda: q8_matmul_plain(x, w11, s11, a8), max(reps // 4, 3)),
            "library_ms": lib_ms, "library_error": lib_err,
@@ -717,7 +824,8 @@ def q8_mlp_case(m, a8, seed, reps=10):
     bf16 weights with F.gelu between."""
     import torch.nn.functional as F
     from mla_tpu_torch.ops.q8_matmul import (mlp_group_width, q8_mlp_plain,
-                                             q8_mlp_stacked)
+                                             q8_mlp_stacked,
+                                             quantize_rows_cuda)
     c, h = 768, 3072
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.standard_normal((m, c)).astype(np.float32)).to(
@@ -736,14 +844,21 @@ def q8_mlp_case(m, a8, seed, reps=10):
         errs.append(ulp_err(got, q8_mlp_plain(x, w1, s1, b1, w2, s2, b2, li,
                                               a8), 1e-6 if a8 else 1e-3))
     lid = torch.tensor(5, dtype=torch.int32, device="cuda")
+    same = bool(torch.equal(q8_mlp_stacked(x, w1, s1, b1, w2, s2, b2, lid, a8),
+                            q8_mlp_stacked(x, w1, s1, b1, w2, s2, b2, lid,
+                                           a8)))
     d1 = (w1[5].to(torch.bfloat16) * s1[5].to(torch.bfloat16)[:, None])
     d2 = (w2[5].to(torch.bfloat16) * s2[5].to(torch.bfloat16)[:, None])
     row = {"rows": m, "c": c, "h": h, "a8": a8,
            "group_width": mlp_group_width(m, c, h) if a8 else None,
            "max_abs_err": max(e[0] for e in errs),
-           "ok": all(e[1] for e in errs),
-           "ms": time_cuda(lambda: q8_mlp_stacked(x, w1, s1, b1, w2, s2, b2,
-                                                  lid, a8), reps),
+           "repeat_bitwise": same, "ok": all(e[1] for e in errs) and same,
+           "ms": time_median(lambda: q8_mlp_stacked(x, w1, s1, b1, w2, s2,
+                                                    b2, lid, a8), reps),
+           "device_ms": device_ms(lambda: q8_mlp_stacked(
+               x, w1, s1, b1, w2, s2, b2, lid, a8)),
+           "quantize_ms": time_median(lambda: quantize_rows_cuda(x), reps)
+           if a8 else None,
            "plain_ms": time_cuda(lambda: q8_mlp_plain(
                x, w1, s1, b1, w2, s2, b2, 5, a8), 3),
            "library_ms": time_cuda(lambda: F.linear(F.gelu(F.linear(
@@ -1712,9 +1827,24 @@ def phase_int8_serving(work: Path):
     reqs = {n: request(rng, n) for n in (1, 3, 64)}
     bf = load_serving(arts["bfloat16"])
     ref64 = run_batch(bf, reqs[64])["fused"]
+    # the bf16 artifact's latency, the yardstick of int8 serving: 2 warm-up
+    # and 10 timed dispatches per request size, as the int8 kinds below
+    bf_rungs = {}
+    for n, feats in reqs.items():
+        times = []
+        for i in range(12):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run_batch(bf, feats)
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append(time.perf_counter() - t)
+        bf_rungs[n] = {"median_ms": float(np.median(times)) * 1e3,
+                       "min_ms": float(np.min(times)) * 1e3}
+    print("[int8] the bfloat16 artifact: " + json.dumps(bf_rungs), flush=True)
     del bf
     torch.cuda.empty_cache()
-    out = {"fp32_bytes": fp32_bytes}
+    out = {"fp32_bytes": fp32_bytes, "bfloat16_rungs": bf_rungs}
     for kind in ("int8", "int8_scan", "int8_a8_scan"):
         torch.cuda.reset_peak_memory_stats()
         srv = load_serving(arts[kind])               # cuda, bf16 compute
@@ -2048,9 +2178,95 @@ def phase_ln_dense():
             "launches_bwd": launches[1]}
 
 
+# ------------------------------------------------ int8 parent comparison
+
+def q8_only(label: str, package=None):
+    """Phases 1, 2, 3 (the int8 rows only) and 8, with ``mla_tpu_torch``
+    imported from ``package`` (another checkout's root) when given; the
+    results go to chiprun_out/q8_<label>.json. Another checkout's kernels
+    are built from its own sources into its own build directory, and its
+    int8 libraries are not held to the wgmma check."""
+    if package is not None:
+        sys.path.insert(0, str(Path(package).resolve()))
+    if not torch.cuda.is_available():
+        fail("no CUDA device: torch.cuda.is_available() is false")
+    import mla_tpu_torch
+    from mla_tpu_torch.device import set_matmul_precision
+    smi = nvidia_smi()
+    print(f"[q8 {label}] {smi}; package {Path(mla_tpu_torch.__file__).parent}",
+          flush=True)
+    set_matmul_precision()
+    build_s, _, q8_build = phase_build(check_q8_wgmma=package is None)
+    gemm, mlp = phase_q8_kernels()
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "build"))
+    try:
+        int8 = phase_int8_serving(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / f"q8_{label}.json").write_text(json.dumps({
+        "device": smi, "package": str(Path(mla_tpu_torch.__file__).parent),
+        "build_s": build_s, "q8_build": q8_build, "q8_kernel_cases": gemm,
+        "q8_mlp_cases": mlp, "int8_serving": int8}, indent=1))
+
+
+def q8_compare(parent: str):
+    """Phases 3 (int8 rows) and 8 of the checkout at ``parent`` and of this
+    one, in four processes on the same card: parent, change, change,
+    parent. Prints each int8 row's ms and each int8 artifact's median per
+    request size, both runs of each side, and the device time of the
+    profiled n=64 dispatch by kernel."""
+    runs = [("parent_1", parent), ("change_1", None), ("change_2", None),
+            ("parent_2", parent)]
+    for label, pkg in runs:
+        cmd = [sys.executable, str(Path(__file__).resolve()), "--q8-only",
+               label] + ([str(Path(pkg).resolve())] if pkg else [])
+        rc = subprocess.run(cmd, cwd=ROOT).returncode
+        check(rc == 0, f"the int8 run {label} failed (exit {rc})")
+    res = {label: json.loads((OUT_DIR / f"q8_{label}.json").read_text())
+           for label, _ in runs}
+
+    def key(r):
+        return (("B5" if r.get("stacked") else "B4") if "site" in r
+                else "B6", r.get("site", ""), r["rows"], r["a8"])
+    table = {}
+    for label in res:
+        for r in (res[label]["q8_kernel_cases"] + res[label]["q8_mlp_cases"]):
+            table.setdefault(key(r), {})[label] = (r["ms"],
+                                                   r.get("device_ms"))
+    print("[q8 compare] kernel (ms, device ms) (parent_1, change_1, "
+          "change_2, parent_2):")
+    for k, v in table.items():
+        print(f"[q8 compare] {k}: " + json.dumps([v.get(lb) for lb, _ in runs]))
+    served = {}
+    for label in res:
+        bf = res[label]["int8_serving"].get("bfloat16_rungs")
+        if bf:
+            served.setdefault("bfloat16", {})[label] = {
+                "median_ms": {n: v["median_ms"] for n, v in bf.items()}}
+        for kind, r in res[label]["int8_serving"].items():
+            if kind in ("fp32_bytes", "bfloat16_rungs"):
+                continue
+            prof = r["profiles"]["64"]        # JSON keys are strings
+            served.setdefault(kind, {})[label] = {
+                "median_ms": {n: v["median_ms"] for n, v in r["rungs"].items()},
+                "n64_device_ms": prof["device_ms"], "n64_top": prof["top"][:6]}
+    for kind, v in served.items():
+        print(f"[q8 compare] {kind}: " + json.dumps(v))
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "q8_compare.json").write_text(json.dumps(
+        {"kernels": {str(k): v for k, v in table.items()}, "serving": served},
+        indent=1))
+
+
 # ---------------------------------------------------------------- main
 
 def main():
+    if sys.argv[1:2] == ["--q8-only"]:
+        return q8_only(sys.argv[2], sys.argv[3] if len(sys.argv) > 3 else None)
+    if sys.argv[1:2] == ["--q8-compare"]:
+        return q8_compare(sys.argv[2])
     if not torch.cuda.is_available():
         fail("no CUDA device: torch.cuda.is_available() is false")
     smi = nvidia_smi()
@@ -2062,7 +2278,7 @@ def main():
     from mla_tpu_torch.device import set_matmul_precision
     set_matmul_precision()      # fp32 plain versions in full fp32, no TF32
     t_start = time.perf_counter()
-    build_s, sass = phase_build()
+    build_s, sass, q8_sass = phase_build()
     rows, bwd_rows = phase_kernels()
     head_rows, head_bwd_rows = phase_head_kernels()
     ln_rows, ln_bwd_rows = phase_ln_kernels()
@@ -2154,6 +2370,9 @@ def main():
                 "a8_bound_ms": twin["bound_ms"],
                 "a8_bound_by": twin["bound_by"],
                 "a8_library_ms": twin["library_ms"],
+                # W8A8 ms include the row quantization; this is it alone
+                "a8_quantize_ms": twin["quantize_ms"],
+                "tops": main_["tops"], "a8_tops": twin["tops"],
                 "max_abs_err_all": max(r["max_abs_err"] for r in rows_of),
                 "all_ok": all(r["ok"] for r in rows_of)}
 
@@ -2227,7 +2446,7 @@ def main():
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
         "device": smi, "torch": torch.__version__, "build_s": build_s,
-        "bwd_sass_mma": sass,
+        "bwd_sass_mma": sass, "q8_build": q8_sass,
         "kernel_cases": rows, "bwd_kernel_cases": bwd_rows,
         "head_kernel_cases": head_rows, "head_bwd_kernel_cases": head_bwd_rows,
         "ln_kernel_cases": ln_rows, "ln_bwd_kernel_cases": ln_bwd_rows,

@@ -1,97 +1,215 @@
 // The int8 GEMM main loop shared by q8_matmul.cu (B4, B5) and q8_mlp.cu (B6),
-// for Hopper (sm_90a).
+// for Hopper (sm_90a): TMA loads into a ring of shared-memory stages, one
+// producer thread, two consumer warpgroups on wgmma.
 //
-// C[M, N] = A[M, K] . W[N, K]^T with W int8 (PyTorch's Linear layout: one
-// row of K weights per output channel). Two operand kinds:
-//  - A bf16 (weight-only): mma.sync m16n8k16 bf16 x bf16 -> fp32; the int8
-//    weights are converted to bf16 (exact, |q| <= 127) on the way from
-//    shared memory into the B fragments.
-//  - A int8 (W8A8): mma.sync m16n8k32 s8 x s8 -> exact int32.
-// A third kind, A fp32 with per-(row, group) maxima, serves the W8A8 MLP's
-// fc2: each 64-wide k-stage of the fp32 hidden is quantized to int8 on its
-// way into shared memory, and the int32 sums are flushed into fp32
-// accumulators times the row's group scale at every group boundary.
+// Every product is out[M, N] = X[M, K] . W[N, K]^T with W int8 in PyTorch's
+// Linear layout (one row of K weights per output channel), on layer l of an
+// (L, N, K) stack, l read on the device. A block computes the transposed
+// tile out^T[n0 : n0 + 128, m0 : m0 + BX] = W . X^T: each consumer
+// warpgroup owns 64 weight rows (wgmma's M) and all BX rows of X (wgmma's
+// N: 64, 128 or 256), so the weight is wgmma's A operand and a per-output-
+// channel scale is a per-row scale of the accumulator. Three kinds:
+//  - A_BF16 (weight-only): X bf16. Each stage brings 64 k: 128-byte X rows
+//    (TMA's 128-byte swizzle, wgmma's shared-memory B operand) and 64-byte
+//    weight rows (64-byte swizzle). Each consumer thread reads its own
+//    A-fragment bytes of the weight tile, converts them to bf16 in registers
+//    (exact, |q| <= 127) and feeds them to wgmma m64nBXk16 as the register A
+//    operand: every weight element is converted once per block, by one
+//    thread. Sums in fp32.
+//  - A_S8 (W8A8): X int8 (rows quantized by quantize_rows_kernel). Each stage
+//    brings 128 k, 128-byte rows of both operands, both read by wgmma
+//    m64nBXk32 s8.s8 from shared memory: exact int32 sums.
+//  - A_S8G: A_S8 whose int32 sums are flushed into fp32 accumulators at
+//    every boundary of `group` k, times the group scale of each X row
+//    ((M, K / group) fp32): the W8A8 MLP's fc2 over its re-quantized hidden.
+// Rows of X past M and k past K arrive as zeros (TMA's out-of-bounds fill).
+// The ring holds as many stages as 227 KB allow (4-8).
 //
-// Block tile BM x 128 (BM = 128 or 64), 8 warps, each warp 32 x (128 / (8 /
-// (BM / 32))); every k-stage moves 64 bytes of each A row and 32 (bf16
-// path) or 64 (int8 path) bytes of each W row through two shared-memory
-// stages filled by cp.async (16-byte chunks, rows past M zero-filled).
-// Rows are padded to 80 bytes, which makes the fragment loads free of bank
-// conflicts. The epilogue is a functor called with each thread's pairs of
-// adjacent output columns.
+// Persistent: one block per SM walks its tiles; the producer runs on into
+// the next tile's stages while the consumers finish a tile. The epilogue
+// maps each accumulator to the output type (the Epi functor), writes 64 rows
+// of X at a time into one of two staging buffers laid out as TMA's
+// 128-byte-swizzled boxes (stmatrix for bf16), and one thread stores each
+// chunk with TMA, which clips rows past M; the stores drain while the next
+// chunk and tile proceed. Tile width BX (64, 128 or 256 rows of X): the one
+// that minimises waves x (BX + 64) over the card's SM count (pick_bx), so
+// rung 1 (257 rows) gets 64-wide tiles on more SMs and rung 64 (16448)
+// 256-wide ones.
+//
+// Bound (rung 64, qkv site 16448 x 768 x 2304, one H100 SXM): 58 GFLOP, 59
+// us at the bf16 peak and 29 us at the int8 peak, ~100 MB of traffic (30
+// us): bound by operations. Both consumer warpgroups run the epilogue
+// while the tensor cores wait; at K = 768 that is the largest cost after
+// the products (measured times: PERF.md).
 #pragma once
 
-#include <cuda_runtime.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 namespace q8 {
 
-constexpr int kThreads = 256;
-constexpr int BN = 128;
-constexpr int ROW = 80;  // bytes of one padded shared-memory row (64 + 16)
+constexpr int kConsumers = 2;                     // consumer warpgroups
+constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's
+constexpr int BW = 64 * kConsumers;               // weight rows per block
+constexpr int kSmemMax = 232448;  // opt-in shared memory of one block
 
-enum AKind { A_BF16 = 0, A_S8 = 1, A_F32Q = 2 };
+enum AKind { A_BF16 = 0, A_S8 = 1, A_S8G = 2 };
 
-constexpr int kSMs = 132;  // the H100 SXM's streaming multiprocessors
-
-// The tile height BM for an M x N output: 128 when 128-row tiles fill the
-// SMs at least twice over, else 64 (more blocks for small outputs).
-inline int pick_bm(int M, int N) {
-  return ((M + 127) / 128) * (N / BN) >= 2 * kSMs ? 128 : 64;
+// k per stage: 128 bytes of an X row
+template <int KIND>
+__host__ __device__ constexpr int k_stage() {
+  return KIND == A_BF16 ? 64 : 128;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
+// Shared memory of a (KIND, BX) block whose output elements take OB bytes:
+// the stage ring (X tile, then the weight tile), two staging buffers of 64
+// output rows, the X rows' scales, then the ring's full/empty barriers.
+template <int KIND, int BX, int OB>
+struct Ring {
+  static constexpr int XB = BX * 128;
+  static constexpr int WB = BW * (KIND == A_BF16 ? 64 : 128);
+  static constexpr int SB = XB + WB;
+  // a staging buffer: 64 rows x 128 columns, as 128-byte-wide TMA boxes
+  // of 64 rows (128-byte swizzle)
+  static constexpr int CHUNK = 64 * BW * OB;
+  static constexpr int FREE = kSmemMax - 1024 - 2 * CHUNK - 4 * 256 - 8 * 16;
+  static constexpr int S = FREE / SB > 8 ? 8 : FREE / SB;
+  // 1024 of slack to align the ring to the 128-byte swizzle's 1024-byte
+  // period
+  static constexpr int BYTES = 1024 + S * SB + 2 * CHUNK + 4 * 256 + 2 * S * 8;
+  static_assert(S >= 2 && BYTES <= kSmemMax, "ring too large");
+};
+
+// ---------------------------------------------------------------- device
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t n) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(n)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// at most N of this thread's bulk store groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 bf16 matrices from accumulator fragments (thread: row lane / 4,
+// columns 2 (lane % 4) + {0, 1}), each stored transposed: lane 8q + r
+// gives the address of row r of matrix q, which receives column r
+__device__ __forceinline__ void stmatrix_x4_trans(void* p, uint32_t r0,
+                                                  uint32_t r1, uint32_t r2,
+                                                  uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, "
+      "%4};\n" ::"r"(smem_u32(p)),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
-                                       const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// two int8 weights (k, k+1) -> a bf16x2 register, lower k in the low half
-__device__ __forceinline__ uint32_t s8x2_to_bf16x2(uint32_t v) {
-  float lo = static_cast<float>(static_cast<int8_t>(v & 0xff));
-  float hi = static_cast<float>(static_cast<int8_t>((v >> 8) & 0xff));
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t ld32(const uint8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ld16(const uint8_t* p) {
-  return *reinterpret_cast<const uint16_t*>(p);
+// A K-major wgmma operand in shared memory: 128-byte rows written by TMA
+// with the 128-byte swizzle, 8-row groups 1024 bytes apart (SBO), LBO
+// unused; +2 advances it by 32 bytes (one k16 bf16 / k32 int8 step).
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  return ((static_cast<uint64_t>(smem_u32(p)) & 0x3FFFF) >> 4) |
+         (1ull << 16) | (64ull << 32) | (1ull << 62);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -99,233 +217,671 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// q = clip(round-half-even(v / s), -127, 127) as one byte
+// two int8 weights (k, k+1) in the low half of v -> a bf16x2 register,
+// lower k in the low half. q + 128 goes into the mantissa of 2^23, so
+// 2^23 + 128 subtracts back to q exactly.
+__device__ __forceinline__ uint32_t s8x2_to_bf16x2(uint32_t v) {
+  const uint32_t u = v ^ 0x8080u;
+  const float lo =
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - 8388736.f;
+  const float hi =
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - 8388736.f;
+  return pack_bf16x2(lo, hi);
+}
+
+__device__ __forceinline__ uint32_t ld_u16(const uint8_t* p) {
+  return *reinterpret_cast<const uint16_t*>(p);
+}
+
+// q = clip(round-half-even(v / s), -127, 127) as one byte (an IEEE
+// division: a reciprocal multiply moves results off the plain version's)
 __device__ __forceinline__ uint32_t quant_byte(float v, float s) {
   float q = fminf(fmaxf(rintf(v / s), -127.f), 127.f);
   return static_cast<uint32_t>(static_cast<int>(q)) & 0xff;
 }
 
-// Per-thread geometry of a BM x 128 tile computed by 8 warps.
-template <int BM>
-struct Tile {
-  static constexpr int WARPS_M = BM / 32;
-  static constexpr int WARPS_N = 8 / WARPS_M;
-  static constexpr int WN = BN / WARPS_N;  // columns per warp
-  static constexpr int MT = 2;             // m16 tiles per warp
-  static constexpr int NT = WN / 8;        // n8 tiles per warp
+// wgmma wrappers: D (64 x N) += A (64 x k) . B^T (B: N x k, K-major in
+// shared memory). bf16_rs: k16, A bf16 in registers, fp32 D; s8_ss: k32, A
+// int8 in shared memory, int32 D.
+#define Q8_D8(c, d, i)                                                    \
+  c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3]), c(d[i + 4]), c(d[i + 5]), \
+      c(d[i + 6]), c(d[i + 7])
+#define Q8_D32(c, d) \
+  Q8_D8(c, d, 0), Q8_D8(c, d, 8), Q8_D8(c, d, 16), Q8_D8(c, d, 24)
+#define Q8_D64(c, d)                                                   \
+  Q8_D8(c, d, 0), Q8_D8(c, d, 8), Q8_D8(c, d, 16), Q8_D8(c, d, 24),    \
+      Q8_D8(c, d, 32), Q8_D8(c, d, 40), Q8_D8(c, d, 48), Q8_D8(c, d, 56)
+#define Q8_D128(c, d)                                                    \
+  Q8_D64(c, d), Q8_D8(c, d, 64), Q8_D8(c, d, 72), Q8_D8(c, d, 80),       \
+      Q8_D8(c, d, 88), Q8_D8(c, d, 96), Q8_D8(c, d, 104), Q8_D8(c, d, 112), \
+      Q8_D8(c, d, 120)
+
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void bf16_rs(float* d, const uint32_t* a,
+                                                uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}"
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : Q8_D32("+f", d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+  }
+  static __device__ __forceinline__ void s8_ss(int* d, uint64_t a,
+                                              uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}"
+        ", %32, %33, p;\n}\n"
+        : Q8_D32("+r", d)
+        : "l"(a), "l"(b));
+  }
 };
 
-// The main loop. A: (M, K) rows of a_bytes bytes each element-wise as the
-// kind says; W: (N, K) int8. acc receives the sums of k in [0, K) (for
-// A_F32Q: the group-scaled fp32 sums). Then epi(row, col, v0, v1) is called
-// for each pair of adjacent columns the thread owns (rows may exceed M: the
-// functor skips them).
-//
-// A_F32Q arguments: gmax (M, K / kgroup) uint32 bit patterns of the groups'
-// max |a| (non-negative floats); the stage of k-tile kt quantizes with
-// s = max(gmax, 1e-12) / 127 of group kt*64 / kgroup.
-template <int BM, int KIND, typename Epi>
-__device__ __forceinline__ void gemm_tile(const void* __restrict__ A,
-                                          const int8_t* __restrict__ W, int M,
-                                          int K, int N, int m0, int n0,
-                                          const uint32_t* __restrict__ gmax,
-                                          int kgroup, Epi epi) {
-  using T = Tile<BM>;
-  constexpr bool S8 = KIND != A_BF16;
-  constexpr int WROW = S8 ? 64 : 32;        // W bytes per row per stage
-  constexpr int KSTAGE = S8 ? 64 : 32;      // k per stage
-  constexpr int A_CHUNKS = BM * 4 / kThreads;
-  constexpr int W_CHUNKS = BN * (WROW / 16) / kThreads;
-  using Acc = typename std::conditional<S8, int, float>::type;
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void bf16_rs(float* d, const uint32_t* a,
+                                                uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}"
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : Q8_D64("+f", d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+  }
+  static __device__ __forceinline__ void s8_ss(int* d, uint64_t a,
+                                              uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}"
+        ", %64, %65, p;\n}\n"
+        : Q8_D64("+r", d)
+        : "l"(a), "l"(b));
+  }
+};
 
-  __shared__ __align__(128) uint8_t As[2][BM * ROW];
-  __shared__ __align__(128) uint8_t Ws[2][BN * ROW];
+template <>
+struct Wgmma<256> {
+  static __device__ __forceinline__ void bf16_rs(float* d, const uint32_t* a,
+                                                uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, "
+        "%88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, "
+        "%104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127}"
+        ", {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+        : Q8_D128("+f", d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+  }
+  static __device__ __forceinline__ void s8_ss(int* d, uint64_t a,
+                                              uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, "
+        "%88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, "
+        "%104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127}"
+        ", %128, %129, p;\n}\n"
+        : Q8_D128("+r", d)
+        : "l"(a), "l"(b));
+  }
+};
+
+// ------------------------------------------------------- row quantization
+
+constexpr int kQuantThreads = 256;
+constexpr int kRowsPerBlock = kQuantThreads / 32;  // one warp per row
+
+// xs[m] = max(max|x[m]|, 1e-12) / 127, xq[m] = quant_byte(x[m], xs[m]); one
+// warp per row, K % 8 == 0. With KEEP > 0 the row, at most 32 x KEEP
+// 8-value chunks, stays in the warp's registers between its max and its
+// bytes and is read once; KEEP = 0 reads it twice.
+template <bool F32, int KEEP>
+__global__ void __launch_bounds__(kQuantThreads)
+quantize_rows_kernel(const void* __restrict__ x, int8_t* __restrict__ xq,
+                     float* __restrict__ xs, int M, int K) {
+  using Raw = typename std::conditional<F32, float4[2], uint4>::type;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m = blockIdx.x * kRowsPerBlock + warp;
+  if (m >= M) return;
+  const int chunks = K / 8;
+  auto load = [&](int c, Raw& r) {
+    if constexpr (F32) {
+      const float4* p = reinterpret_cast<const float4*>(
+          static_cast<const float*>(x) + static_cast<size_t>(m) * K + c * 8);
+      r[0] = p[0];
+      r[1] = p[1];
+    } else {
+      r = reinterpret_cast<const uint4*>(
+          static_cast<const __nv_bfloat16*>(x) + static_cast<size_t>(m) * K)[c];
+    }
+  };
+  auto unpack = [&](const Raw& r, float* v) {
+    if constexpr (F32) {
+      v[0] = r[0].x; v[1] = r[0].y; v[2] = r[0].z; v[3] = r[0].w;
+      v[4] = r[1].x; v[5] = r[1].y; v[6] = r[1].z; v[7] = r[1].w;
+    } else {
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float2 f = __bfloat1622float2(h[i]);
+        v[2 * i] = f.x;
+        v[2 * i + 1] = f.y;
+      }
+    }
+  };
+  auto store = [&](int c, const float* v, float s) {
+    uint2 q;
+    q.x = quant_byte(v[0], s) | (quant_byte(v[1], s) << 8) |
+          (quant_byte(v[2], s) << 16) | (quant_byte(v[3], s) << 24);
+    q.y = quant_byte(v[4], s) | (quant_byte(v[5], s) << 8) |
+          (quant_byte(v[6], s) << 16) | (quant_byte(v[7], s) << 24);
+    reinterpret_cast<uint2*>(xq + static_cast<size_t>(m) * K)[c] = q;
+  };
+  auto amax_of = [&](float a) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
+    return a;
+  };
+  float amax = 0.f;
+  if constexpr (KEEP > 0) {
+    Raw keep[KEEP];
+#pragma unroll
+    for (int i = 0; i < KEEP; ++i) {
+      const int c = lane + 32 * i;
+      if (c < chunks) {
+        load(c, keep[i]);
+        float v[8];
+        unpack(keep[i], v);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
+      }
+    }
+    const float s = fmaxf(amax_of(amax), 1e-12f) / 127.f;
+    if (lane == 0) xs[m] = s;
+#pragma unroll
+    for (int i = 0; i < KEEP; ++i) {
+      const int c = lane + 32 * i;
+      if (c < chunks) {
+        float v[8];
+        unpack(keep[i], v);
+        store(c, v, s);
+      }
+    }
+  } else {
+    for (int c = lane; c < chunks; c += 32) {
+      Raw r;
+      float v[8];
+      load(c, r);
+      unpack(r, v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
+    }
+    const float s = fmaxf(amax_of(amax), 1e-12f) / 127.f;
+    if (lane == 0) xs[m] = s;
+    for (int c = lane; c < chunks; c += 32) {
+      Raw r;
+      float v[8];
+      load(c, r);
+      unpack(r, v);
+      store(c, v, s);
+    }
+  }
+}
+
+template <bool F32>
+int quantize_rows_keep(const void* x, int8_t* xq, float* xs, int M, int K,
+                       cudaStream_t st) {
+  const dim3 grid((M + kRowsPerBlock - 1) / kRowsPerBlock);
+  const int per_lane = (K / 8 + 31) / 32;  // 8-value chunks a lane reads
+  auto run = [&](auto kernel) {
+    kernel<<<grid, kQuantThreads, 0, st>>>(x, xq, xs, M, K);
+  };
+  if (per_lane <= 1) run(quantize_rows_kernel<F32, 1>);
+  else if (per_lane <= 2) run(quantize_rows_kernel<F32, 2>);
+  else if (per_lane <= 3) run(quantize_rows_kernel<F32, 3>);
+  else if (per_lane <= 4) run(quantize_rows_kernel<F32, 4>);
+  else if (per_lane <= 6) run(quantize_rows_kernel<F32, 6>);
+  else if (per_lane <= 12 && !F32) run(quantize_rows_kernel<F32, 12>);
+  else run(quantize_rows_kernel<F32, 0>);
+  return static_cast<int>(cudaGetLastError());
+}
+
+inline int quantize_rows(const void* x, int8_t* xq, float* xs, int M, int K,
+                         bool f32, cudaStream_t st) {
+  if (M == 0) return 0;
+  return f32 ? quantize_rows_keep<true>(x, xq, xs, M, K, st)
+             : quantize_rows_keep<false>(x, xq, xs, M, K, st);
+}
+
+// ---------------------------------------------------------------- GEMM
+
+struct Args {
+  const float* scale;  // (L, N): per output channel of each layer
+  const float* bias;   // (N,), or null
+  const float* xs;     // A_S8: (M,) row scales; A_S8G: (M, K / group)
+  const int* layer;    // the int32 layer id on the device, or null (l = 0)
+  void* out;           // (M, N) of Epi::Out
+  int L, M, N, K, group;
+};
+
+// The Epi functor: `Out`, `kRowScale` (whether apply gets xs[m] as r), and
+// Out apply(v, s, b, r) for the accumulator v (fp32, or int32 for A_S8) of
+// output (m, n) with s = scale[l, n], b = bias[n] (0 without a bias).
+//
+// Persistent: block b computes tiles b, b + gridDim.x, ... (row tiles
+// fastest). The producer runs through the k-stages of all of them, so the
+// next tile's first stages load while the consumers run the epilogue, and
+// the epilogue's TMA stores drain while the next tile computes.
+template <int KIND, int BX, class Epi>
+__global__ void __launch_bounds__(kThreads, 1)
+gemm_kernel(__grid_constant__ const CUtensorMap tx,
+            __grid_constant__ const CUtensorMap tw,
+            __grid_constant__ const CUtensorMap to, const Args a) {
+  using Out = typename Epi::Out;
+  using R = Ring<KIND, BX, sizeof(Out)>;
+  using Acc = typename std::conditional<KIND == A_BF16, float, int>::type;
+  constexpr int KS = k_stage<KIND>();
+  constexpr int NR = BX / 2;                   // accumulators per thread
+  constexpr int BOXC = 128 / sizeof(Out);      // columns of a store box
+  static_assert(KIND != A_S8G || BX <= 128, "A_S8G holds two accumulators");
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* stg = smem + R::S * R::SB;          // two staging buffers
+  float* sxs = reinterpret_cast<float*>(stg + 2 * R::CHUNK);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sxs + 256);
+  uint64_t* empty = full + R::S;
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp % T::WARPS_M, wn = warp / T::WARPS_M;
-  const int g = lane >> 2, t = lane & 3;
-  const uint8_t* a8 = static_cast<const uint8_t*>(A);
-  const size_t a_row_bytes = static_cast<size_t>(K) * (KIND == A_BF16 ? 2 : 1);
-
-  Acc acc[T::MT][T::NT][4];
-  float facc[T::MT][T::NT][4];  // A_F32Q only (otherwise optimised away)
-#pragma unroll
-  for (int i = 0; i < T::MT; ++i)
-#pragma unroll
-    for (int j = 0; j < T::NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-  if constexpr (KIND == A_F32Q) {
-#pragma unroll
-    for (int i = 0; i < T::MT; ++i)
-#pragma unroll
-      for (int j = 0; j < T::NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) facc[i][j][e] = 0.f;
-  }
-
-  // A_F32Q: this thread quantizes 64 * BM / 256 consecutive floats of one row
-  // per stage (BM = 64: 16 floats, one 16-byte store).
-  constexpr int QF = 64 * BM / kThreads;
-  const int q_row = tid / (64 / QF), q_col = (tid % (64 / QF)) * QF;
-  const float* af = static_cast<const float*>(A);
-  float4 qv[QF / 4];
-
-  auto load_w = [&](int kt, int s) {
-#pragma unroll
-    for (int i = 0; i < W_CHUNKS; ++i) {
-      int id = tid + i * kThreads;
-      int row = id / (WROW / 16), c = id % (WROW / 16);
-      cp_async16(&Ws[s][row * ROW + c * 16],
-                 W + static_cast<size_t>(n0 + row) * K + kt * KSTAGE + c * 16,
-                 true);
+  const int l = a.layer ? min(max(*a.layer, 0), a.L - 1) : 0;
+  const int KT = (a.K + KS - 1) / KS;
+  const int tiles_m = (a.M + BX - 1) / BX;
+  const int tiles = tiles_m * (a.N / BW);
+  if (tid == 0) {
+    for (int s = 0; s < R::S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kConsumers);  // one arrival per consumer warp
     }
-  };
-  auto load_a = [&](int kt, int s) {
-    if (KIND == A_F32Q) {
-      const int m = m0 + q_row;
-      const bool ok = m < M;
-      const float* src = af + static_cast<size_t>(ok ? m : 0) * K +
-                         kt * 64 + q_col;
-#pragma unroll
-      for (int i = 0; i < QF / 4; ++i)
-        qv[i] = ok ? reinterpret_cast<const float4*>(src)[i]
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
-    } else {
-#pragma unroll
-      for (int i = 0; i < A_CHUNKS; ++i) {
-        int id = tid + i * kThreads;
-        int row = id >> 2, c = id & 3;
-        int m = m0 + row;
-        bool ok = m < M;
-        const uint8_t* src =
-            ok ? a8 + static_cast<size_t>(m) * a_row_bytes + kt * 64 + c * 16
-               : a8;
-        cp_async16(&As[s][row * ROW + c * 16], src, ok);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = tid / 128;
+  if (wg == kConsumers) {
+    // ---- producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 128 * kConsumers) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&tx))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&tw))
+                   : "memory");
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile % tiles_m) * BX, n0 = (tile / tiles_m) * BW;
+        for (int kt = 0; kt < KT; ++kt, ++it) {
+          const int s = it % R::S;
+          mbar_wait(&empty[s], ((it / R::S) & 1) ^ 1);
+          mbar_expect_tx(&full[s], R::SB);
+          uint8_t* st = smem + s * R::SB;
+          tma_load_2d(st, &tx, &full[s], kt * KS, m0);
+          tma_load_3d(st + R::XB, &tw, &full[s], kt * KS, n0, l);
+        }
       }
     }
-  };
-  // A_F32Q: quantize the registers loaded by load_a into stage s
-  auto store_a = [&](int kt, int s) {
-    if (KIND == A_F32Q) {
-      const int m = m0 + q_row;
-      const int ng = K / kgroup;
-      float sc = 1.f;
-      if (m < M)
-        sc = fmaxf(__uint_as_float(gmax[static_cast<size_t>(m) * ng +
-                                        (kt * 64) / kgroup]),
-                   1e-12f) / 127.f;
-      uint32_t w[QF / 4];
+  } else {
+    // ---- consumers: warpgroup wg owns weight rows 64 wg .. 64 wg + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    // accumulator i of this thread is (row nl + 8 ((i >> 1) & 1), column
+    // 8 (i >> 2) + 2t + (i & 1)) of the transposed tile
+    const int nl = 64 * wg + 16 * warp + g;
+    int it = 0, chunk = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile % tiles_m) * BX, n0 = (tile / tiles_m) * BW;
+      Acc acc[NR];
+      float facc[KIND == A_S8G ? NR : 1];
 #pragma unroll
-      for (int i = 0; i < QF / 4; ++i)
-        w[i] = quant_byte(qv[i].x, sc) | (quant_byte(qv[i].y, sc) << 8) |
-               (quant_byte(qv[i].z, sc) << 16) | (quant_byte(qv[i].w, sc) << 24);
-      uint8_t* dst = &As[s][q_row * ROW + q_col];
+      for (int i = 0; i < NR; ++i) acc[i] = 0;
 #pragma unroll
-      for (int i = 0; i < QF / 16; ++i)
-        *reinterpret_cast<uint4*>(dst + 16 * i) =
-            make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
-    }
-  };
-  // A_F32Q: acc (int32 sums of one group) -> facc, times each row's scale
-  auto flush_group = [&](int grp) {
-    const int ng = K / kgroup;
+      for (int i = 0; i < (KIND == A_S8G ? NR : 1); ++i) facc[i] = 0.f;
+      fence_regs(acc);
+      for (int kt = 0; kt < KT; ++kt, ++it) {
+        const int s = it % R::S;
+        mbar_wait(&full[s], (it / R::S) & 1);
+        const uint8_t* st = smem + s * R::SB;
+        const uint64_t dx = desc_sw128(st);
+        if constexpr (KIND == A_BF16) {
+          // this thread's A fragments: rows r and r + 8, k pairs (2t, 2t+1)
+          // and (2t+8, 2t+9) of each 16-wide step; the 64-byte swizzle puts
+          // 16-byte chunk ks of row r at ks ^ ((r >> 1) & 3) = ks ^ (g >> 1)
+          const uint8_t* wr = st + R::XB + nl * 64 + 2 * t;
+          uint32_t af[4][4];
 #pragma unroll
-    for (int i = 0; i < T::MT; ++i) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm * 32 + i * 16 + g + 8 * h;
-        float sc = 0.f;
-        if (m < M)
-          sc = fmaxf(__uint_as_float(gmax[static_cast<size_t>(m) * ng + grp]),
-                     1e-12f) / 127.f;
-#pragma unroll
-        for (int j = 0; j < T::NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            facc[i][j][2 * h + e] = __fadd_rn(
-                facc[i][j][2 * h + e],
-                __fmul_rn(static_cast<float>(acc[i][j][2 * h + e]), sc));
-            acc[i][j][2 * h + e] = 0;
+          for (int ks = 0; ks < 4; ++ks) {
+            const uint8_t* p = wr + ((ks ^ (g >> 1)) << 4);
+            af[ks][0] = s8x2_to_bf16x2(ld_u16(p));
+            af[ks][1] = s8x2_to_bf16x2(ld_u16(p + 8 * 64));
+            af[ks][2] = s8x2_to_bf16x2(ld_u16(p + 8));
+            af[ks][3] = s8x2_to_bf16x2(ld_u16(p + 8 * 64 + 8));
           }
-      }
-    }
-  };
-
-  const int KT = K / KSTAGE;
-  const int stages_per_group = KIND == A_F32Q ? kgroup / 64 : 0;
-  load_w(0, 0);
-  load_a(0, 0);
-  store_a(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < KT; ++kt) {
-    const int s = kt & 1;
-    if (kt + 1 < KT) {
-      load_w(kt + 1, s ^ 1);
-      load_a(kt + 1, s ^ 1);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const uint8_t* as = As[s];
-    const uint8_t* ws = Ws[s];
+          wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {  // two mma k-steps per stage
-      uint32_t af_[T::MT][4];
-#pragma unroll
-      for (int i = 0; i < T::MT; ++i) {
-        const uint8_t* r0 = as + (wm * 32 + i * 16 + g) * ROW + kk * 32;
-        const uint8_t* r1 = r0 + 8 * ROW;
-        // bf16: 4 bytes = k pair t*2; int8: 4 bytes = k quad t*4
-        af_[i][0] = ld32(r0 + t * 4);
-        af_[i][1] = ld32(r1 + t * 4);
-        af_[i][2] = ld32(r0 + 16 + t * 4);
-        af_[i][3] = ld32(r1 + 16 + t * 4);
-      }
-#pragma unroll
-      for (int j = 0; j < T::NT; ++j) {
-        const uint8_t* wr = ws + (wn * T::WN + j * 8 + g) * ROW;
-        uint32_t bf[2];
-        if (S8) {
-          bf[0] = ld32(wr + kk * 32 + t * 4);
-          bf[1] = ld32(wr + kk * 32 + 16 + t * 4);
+          for (int ks = 0; ks < 4; ++ks)
+            Wgmma<BX>::bf16_rs(acc, af[ks], dx + 2 * ks);
         } else {
-          bf[0] = s8x2_to_bf16x2(ld16(wr + kk * 16 + t * 2));
-          bf[1] = s8x2_to_bf16x2(ld16(wr + kk * 16 + 8 + t * 2));
-        }
+          const uint64_t dw = desc_sw128(st + R::XB + wg * 64 * 128);
+          wgmma_fence();
 #pragma unroll
-        for (int i = 0; i < T::MT; ++i) {
-          if constexpr (S8)
-            mma_s8(reinterpret_cast<int*>(acc[i][j]), af_[i], bf);
-          else
-            mma_bf16(reinterpret_cast<float*>(acc[i][j]), af_[i], bf);
+          for (int ks = 0; ks < 4; ++ks)
+            Wgmma<BX>::s8_ss(acc, dw + 2 * ks, dx + 2 * ks);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(acc);
+        if (lane == 0) mbar_arrive(&empty[s]);
+        if constexpr (KIND == A_S8G) {
+          // the int32 sums of one group, times each X row's group scale
+          if (((kt + 1) * KS) % a.group == 0 || kt + 1 == KT) {
+            const int ng = a.K / a.group, grp = kt * KS / a.group;
+            float sg[BX / 4];
+#pragma unroll
+            for (int j = 0; j < BX / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int m = m0 + 8 * j + 2 * t + e;
+                sg[2 * j + e] =
+                    m < a.M ? a.xs[static_cast<size_t>(m) * ng + grp] : 0.f;
+              }
+#pragma unroll
+            for (int i = 0; i < NR; ++i) {
+              facc[i] = __fadd_rn(
+                  facc[i],
+                  __fmul_rn(static_cast<float>(acc[i]),
+                            sg[2 * (i >> 2) + (i & 1)]));
+              acc[i] = 0;
+            }
+            fence_regs(acc);
+          }
         }
       }
-    }
-    if constexpr (KIND == A_F32Q) {
-      if (kt + 1 < KT) store_a(kt + 1, s ^ 1);
-    }
-    __syncthreads();
-    if constexpr (KIND == A_F32Q) {
-      if ((kt + 1) % stages_per_group == 0) flush_group(kt / stages_per_group);
-    }
-  }
-  cp_async_wait<0>();
 
-#pragma unroll
-  for (int i = 0; i < T::MT; ++i)
-#pragma unroll
-    for (int j = 0; j < T::NT; ++j)
+      // ---- epilogue: 64 rows of X at a time into a staging buffer, then
+      // TMA stores (rows past M are clipped), double-buffered
+      if constexpr (Epi::kRowScale)
+        if (tid < BX) sxs[tid] = m0 + tid < a.M ? a.xs[m0 + tid] : 0.f;
+      float sc[2], bi[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * 32 + i * 16 + g + 8 * h;
-        const int col = n0 + wn * T::WN + j * 8 + t * 2;
-        if constexpr (KIND == A_F32Q)
-          epi(row, col, facc[i][j][2 * h], facc[i][j][2 * h + 1]);
-        else
-          epi(row, col, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        const int n = n0 + nl + 8 * h;
+        sc[h] = a.scale[static_cast<size_t>(l) * a.N + n];
+        bi[h] = a.bias ? a.bias[n] : 0.f;
       }
+#pragma unroll
+      for (int q = 0; q < BX / 64; ++q, ++chunk) {
+        uint8_t* buf = stg + (chunk & 1) * R::CHUNK;
+        // the store that read this buffer two chunks ago is done with it
+        if (tid == 0) bulk_wait_read<1>();
+        asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kConsumers) : "memory");
+        auto value = [&](int i) {
+          const int ml = 8 * (i >> 2) + 2 * t + (i & 1);
+          const float r = Epi::kRowScale ? sxs[ml] : 1.f;
+          const int h = (i >> 1) & 1;
+          if constexpr (KIND == A_S8G)
+            return Epi::apply(facc[i], sc[h], bi[h], r);
+          else
+            return Epi::apply(acc[i], sc[h], bi[h], r);
+        };
+        if constexpr (sizeof(Out) == 2) {
+          // matrices (j, h) of 8 columns of X x 8 weight rows, two j's a
+          // stmatrix: row r of matrix (j, h) is X row 8 (j - 8q) + r of the
+          // chunk, 16 bytes at 16-byte chunk 2 warp + h of box wg (swizzled)
+          const int mat = lane >> 3, r = lane & 7;
+          const int jj = mat >> 1, hh = mat & 1;
+          uint8_t* row = buf + wg * (64 * 128);
+#pragma unroll
+          for (int j = 8 * q; j < 8 * q + 8; j += 2) {
+            uint32_t v[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const int i = 4 * (j + (u >> 1)) + 2 * (u & 1);
+              const Out lo = value(i), hi = value(i + 1);
+              v[u] = static_cast<uint32_t>(
+                         *reinterpret_cast<const uint16_t*>(&lo)) |
+                     (static_cast<uint32_t>(
+                          *reinterpret_cast<const uint16_t*>(&hi))
+                      << 16);
+            }
+            const int ml = 8 * (j - 8 * q + jj) + r;
+            stmatrix_x4_trans(row + ml * 128 + (((2 * warp + hh) ^ r) << 4),
+                              v[0], v[1], v[2], v[3]);
+          }
+        } else {
+          // fp32: element (ml, n) at box n / 32, row ml, byte 4 (n % 32),
+          // 16-byte chunk swizzled with ml & 7
+#pragma unroll
+          for (int j = 8 * q; j < 8 * q + 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int i = 4 * j + 2 * h + e;
+                const int ml = 8 * (j - 8 * q) + 2 * t + e;
+                const int n = nl + 8 * h, nb = n & 31;
+                *reinterpret_cast<Out*>(buf + (n >> 5) * (64 * 128) +
+                                        ml * 128 +
+                                        (((nb >> 2) ^ (ml & 7)) << 4) +
+                                        (nb & 3) * 4) = value(i);
+              }
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kConsumers) : "memory");
+        if (tid == 0 && m0 + 64 * q < a.M) {
+#pragma unroll
+          for (int b = 0; b < BW / BOXC; ++b)
+            tma_store_2d(&to, buf + b * (64 * 128), n0 + b * BOXC,
+                         m0 + 64 * q);
+        }
+        if (tid == 0) bulk_commit();
+      }
+    }
+    if (tid == 0) bulk_wait_read<0>();
+  }
+}
+
+// ------------------------------------------------------------------ host
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda)
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &q) != cudaSuccess)
+      p = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess)
+      p = nullptr;
+#endif
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A 2-D (rows, cols) or, with layers > 0, 3-D (layers, rows, cols)
+// row-major tensor of `esize`-byte elements, moved in boxes of box_c x
+// box_r (x 1).
+inline bool make_map(CUtensorMap* map, const void* base,
+                     CUtensorMapDataType type, int esize, int layers,
+                     int rows, int cols, int box_c, int box_r,
+                     CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t es = static_cast<cuuint64_t>(esize);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(layers)};
+  const cuuint64_t strides[2] = {cols * es, static_cast<cuuint64_t>(rows) *
+                                                cols * es};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_c),
+                             static_cast<cuuint32_t>(box_r), 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return fn(map, type, layers > 0 ? 3 : 2, const_cast<void*>(base), dims,
+            strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the card's SM count (cached per device)
+inline int sm_count() {
+  static int cache[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 64 && cache[dev] > 0) return cache[dev];
+  int n = 0;
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  if (n <= 0) n = 1;
+  if (dev < 64) cache[dev] = n;
+  return n;
+}
+
+// The tile width: fewest waves x (BX + 64), where 64 stands for a tile's
+// fixed cost (ring fill, epilogue); the wider tile on a tie.
+inline int pick_bx(int M, int N, int sms, int max_bx) {
+  int best = 64;
+  long long best_cost = -1;
+  for (int bx = max_bx; bx >= 64; bx /= 2) {
+    const long long tiles =
+        static_cast<long long>((M + bx - 1) / bx) * (N / BW);
+    const long long cost = (tiles + sms - 1) / sms * (bx + 64);
+    if (best_cost < 0 || cost < best_cost) {
+      best = bx;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// One launch: x (M, K) bf16 (A_BF16) or int8; w (L, N, K) int8; one
+// persistent block per SM, or per tile when there are fewer.
+template <int KIND, int BX, class Epi>
+int launch_bx(const void* x, const int8_t* w, const Args& a, int sms,
+              cudaStream_t st) {
+  using Out = typename Epi::Out;
+  using R = Ring<KIND, BX, sizeof(Out)>;
+  constexpr int KS = k_stage<KIND>();
+  static unsigned long long ready = 0;  // devices with the smem opt-in set
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 64 || !((ready >> dev) & 1)) {
+    cudaError_t e = cudaFuncSetAttribute(
+        gemm_kernel<KIND, BX, Epi>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, R::BYTES);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev < 64) ready |= 1ull << dev;
+  }
+  const bool f32 = sizeof(Out) == 4;
+  CUtensorMap tx, tw, to;
+  if (!make_map(&tx, x,
+                KIND == A_BF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                               : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                KIND == A_BF16 ? 2 : 1, 0, a.M, a.K, KS, BX,
+                CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map(&tw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.L, a.N, a.K, KS,
+                BW,
+                KIND == A_BF16 ? CU_TENSOR_MAP_SWIZZLE_64B
+                               : CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map(&to, a.out,
+                f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                f32 ? 4 : 2, 0, a.M, a.N, f32 ? 32 : 64, 64,
+                CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = (a.M + BX - 1) / BX * (a.N / BW);
+  gemm_kernel<KIND, BX, Epi><<<tiles < sms ? tiles : sms, kThreads, R::BYTES,
+                               st>>>(tx, tw, to, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out = Epi(X . W[l]^T) with the tile width pick_bx chooses. N % 128 == 0,
+// K % 64 == 0 (A_S8G: group % 128 == 0, K % group == 0).
+template <int KIND, class Epi>
+int gemm(const void* x, const int8_t* w, const Args& a, cudaStream_t st) {
+  if (a.M == 0) return 0;
+  const int sms = sm_count();
+  const int bx = pick_bx(a.M, a.N, sms, KIND == A_S8G ? 128 : 256);
+  if constexpr (KIND != A_S8G)
+    if (bx == 256) return launch_bx<KIND, 256, Epi>(x, w, a, sms, st);
+  if (bx == 128) return launch_bx<KIND, 128, Epi>(x, w, a, sms, st);
+  return launch_bx<KIND, 64, Epi>(x, w, a, sms, st);
 }
 
 }  // namespace q8

@@ -46,6 +46,7 @@ the W8A8 calibration forward (``runtime/export.py:calibrate_a8``).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -248,7 +249,26 @@ def _layer_id(layer, x):
 
 
 def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
+    """The raw handle of the current stream on x's card (what
+    ``torch.cuda.current_stream(dev).cuda_stream`` returns, without
+    building a Stream object on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(x.device.index)
+
+
+def _on_card(x):
+    """The context of a launch on x's card: nothing to do when it is the
+    current device (serving's case), else ``torch.cuda.device``."""
+    if x.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(x.device)
+
+
+def _fp32(b):
+    """A bias as the kernel reads it: fp32 and contiguous (itself when it
+    already is, as the serving model's biases are)."""
+    if b.dtype == torch.float32 and b.is_contiguous():
+        return b
+    return b.float().contiguous()
 
 
 def quantize_rows_cuda(x2):
@@ -263,7 +283,7 @@ def quantize_rows_cuda(x2):
         raise ValueError(f"quantize_rows takes K % {K_MULT} == 0, got {k}")
     xq = torch.empty((m, k), dtype=torch.int8, device=x2.device)
     xs = torch.empty((m,), dtype=torch.float32, device=x2.device)
-    with torch.cuda.device(x2.device):
+    with _on_card(x2):
         rc = _gemm_lib().mla_q8_quantize_rows(
             x2.data_ptr(), xq.data_ptr(), xs.data_ptr(), m, k,
             int(x2.dtype == torch.float32), _stream(x2))
@@ -282,7 +302,7 @@ def _launch_gemm(x2, w, scale, layer, a8: bool):
         xa, xs = x2.to(torch.bfloat16).contiguous(), None
     out = torch.empty((m, w.shape[-2]), dtype=torch.bfloat16,
                       device=x2.device)
-    with torch.cuda.device(x2.device):
+    with _on_card(x2):
         rc = _gemm_lib().mla_q8_matmul(
             xa.data_ptr(), None if xs is None else xs.data_ptr(),
             w.data_ptr(), scale.data_ptr(),
@@ -355,22 +375,26 @@ def q8_mlp_stacked(x, w1, s1, b1, w2, s2, b2, layer, a8: bool = False):
         raise ValueError(f"q8_mlp_stacked: biases must be ({h},) and ({c},)")
     layer = _layer_id(layer, x)
     bh = mlp_group_width(m, c, h) if a8 else h
+    hq = hs = None
     if a8:
+        # route (i): fc1 writes the fp32 hidden, the row quantizer turns
+        # each (row, group) into int8 and a scale, fc2 multiplies int8
         xa, xs = quantize_rows_cuda(x2)
         hidden = torch.empty((m, h), dtype=torch.float32, device=x.device)
-        gmax = torch.empty((m, h // bh), dtype=torch.int32, device=x.device)
+        hq = torch.empty((m, h), dtype=torch.int8, device=x.device)
+        hs = torch.empty((m, h // bh), dtype=torch.float32, device=x.device)
     else:
         xa, xs = x2.to(torch.bfloat16).contiguous(), None
         hidden = torch.empty((m, h), dtype=torch.bfloat16, device=x.device)
-        gmax = None
     out = torch.empty((m, c), dtype=torch.bfloat16, device=x.device)
-    f1, f2 = b1.float().contiguous(), b2.float().contiguous()
-    with torch.cuda.device(x.device):
+    f1, f2 = _fp32(b1), _fp32(b2)
+    with _on_card(x):
         rc = _mlp_lib().mla_q8_mlp(
             xa.data_ptr(), None if xs is None else xs.data_ptr(),
             w1.data_ptr(), s1.data_ptr(), f1.data_ptr(), w2.data_ptr(),
             s2.data_ptr(), f2.data_ptr(), layer.data_ptr(), w1.shape[0],
-            hidden.data_ptr(), None if gmax is None else gmax.data_ptr(),
+            hidden.data_ptr(), None if hq is None else hq.data_ptr(),
+            None if hs is None else hs.data_ptr(),
             out.data_ptr(), m, c, h, bh, int(a8), _stream(x))
     if rc != 0:
         raise RuntimeError(f"q8 MLP kernel launch failed: CUDA error {rc}")
@@ -381,24 +405,34 @@ def q8_mlp_stacked(x, w1, s1, b1, w2, s2, b2, layer, a8: bool = False):
 q8_mlp_stacked.launches = 0
 
 
+# the loaded libraries with their argument types set, by source name
+_LIBS = {}
+
+
 def _gemm_lib() -> ctypes.CDLL:
-    lib = _build.load("q8_matmul")
-    fn = lib.mla_q8_quantize_rows
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.mla_q8_matmul
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p] + [
-        ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib = _LIBS.get("q8_matmul")
+    if lib is None:
+        lib = _build.load("q8_matmul")
+        fn = lib.mla_q8_quantize_rows
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.mla_q8_matmul
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int,
+                                               ctypes.c_void_p] + [
+            ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _LIBS["q8_matmul"] = lib
     return lib
 
 
 def _mlp_lib() -> ctypes.CDLL:
-    lib = _build.load("q8_mlp")
-    fn = lib.mla_q8_mlp
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] + [
-        ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib = _LIBS.get("q8_mlp")
+    if lib is None:
+        lib = _build.load("q8_mlp")
+        fn = lib.mla_q8_mlp
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] + [
+            ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _LIBS["q8_mlp"] = lib
     return lib
-

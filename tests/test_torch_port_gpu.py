@@ -482,12 +482,79 @@ def test_q8_matmul_stacked_reads_and_clamps_the_layer(a8):
                1e-6 if a8 else 3e-5)
 
 
+# the base width's four block sites (K, N)
+Q8_SITES = {"qkv": (768, 2304), "proj": (768, 768), "fc1": (768, 3072),
+            "fc2": (3072, 768)}
+
+
 @pytest.mark.parametrize("a8", [False, True])
-@pytest.mark.parametrize("m", [257, 2056, 1001])
+@pytest.mark.parametrize("site", sorted(Q8_SITES))
+@pytest.mark.parametrize("m", [1, 257, 777, 16448])
+def test_q8_matmul_every_site_and_rung(m, site, a8):
+    """B4 at each block site at one row, rungs 1 and 64 (257, 16448 rows)
+    and a row count that is a multiple of neither 64 nor 128 (the tile
+    chooser's widths), against the plain version; a second call repeats
+    the first bit for bit."""
+    torch = _cuda()
+    from mla_tpu_torch.device import set_matmul_precision
+    from mla_tpu_torch.ops.q8_matmul import q8_matmul, q8_matmul_plain
+
+    set_matmul_precision()
+    k, n = Q8_SITES[site]
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    q, s = _q8_weight(rng, n, k)
+    w, s = torch.from_numpy(q).cuda(), torch.from_numpy(s).cuda()
+    got = q8_matmul(x, w, s, a8=a8)
+    again = q8_matmul(x, w, s, a8=a8)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(torch, got, q8_matmul_plain(x, w, s, a8), 1e-6 if a8 else 3e-5)
+
+
+@pytest.mark.parametrize("a8", [False, True])
+def test_q8_stacked_kernels_on_twelve_layers(a8):
+    """B5 (qkv site) and B6 on 12-layer base-width stacks at layer ids 0, 11
+    and 99 (clamped to 11), 257 rows; each call twice, bit for bit."""
+    torch = _cuda()
+    from mla_tpu_torch.device import set_matmul_precision
+    from mla_tpu_torch.ops.q8_matmul import (q8_matmul_plain,
+                                             q8_matmul_stacked, q8_mlp_plain,
+                                             q8_mlp_stacked)
+
+    set_matmul_precision()
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((257, 768)).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    qq, sq = _q8_weight(rng, 12, 2304, 768)
+    q1, s1 = _q8_weight(rng, 12, 3072, 768)
+    q2, s2 = _q8_weight(rng, 12, 768, 3072)
+    wq, sq, w1, s1, w2, s2 = (torch.from_numpy(a).cuda()
+                              for a in (qq, sq, q1, s1, q2, s2))
+    b1 = torch.from_numpy(rng.standard_normal(3072).astype(np.float32)
+                          * 0.1).cuda()
+    b2 = torch.from_numpy(rng.standard_normal(768).astype(np.float32)
+                          * 0.1).cuda()
+    for layer, want_l in ((0, 0), (11, 11), (99, 11)):
+        lid = torch.tensor(layer, dtype=torch.int32, device="cuda")
+        got = q8_matmul_stacked(x, wq, sq, lid, a8=a8)
+        assert torch.equal(got, q8_matmul_stacked(x, wq, sq, lid, a8=a8))
+        _close(torch, got, q8_matmul_plain(x, wq[want_l], sq[want_l], a8),
+               1e-6 if a8 else 3e-5)
+        got = q8_mlp_stacked(x, w1, s1, b1, w2, s2, b2, lid, a8=a8)
+        assert torch.equal(got, q8_mlp_stacked(x, w1, s1, b1, w2, s2, b2,
+                                               lid, a8=a8))
+        _close(torch, got, q8_mlp_plain(x, w1, s1, b1, w2, s2, b2, want_l,
+                                        a8), 1e-6 if a8 else 1e-3)
+
+
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("m", [257, 2056, 1001, 16448])
 def test_q8_mlp_kernel_matches_plain(m, a8):
     """B6 on layer 1 of a 2-layer base-width stack (C 768, H 3072) and an
     out-of-range id; W8A8 with the chooser's group width (1536 at 257 rows,
-    768 at 2056)."""
+    768 at 2056, 512 at 16448)."""
     torch = _cuda()
     from mla_tpu_torch.device import set_matmul_precision
     from mla_tpu_torch.ops.q8_matmul import (mlp_group_width, q8_mlp_plain,
@@ -504,8 +571,9 @@ def test_q8_mlp_kernel_matches_plain(m, a8):
     b2 = torch.from_numpy(rng.standard_normal(768).astype(np.float32) * 0.1
                           ).to("cuda", torch.bfloat16)
     w1, s1, w2, s2 = (torch.from_numpy(a).cuda() for a in (q1, s1, q2, s2))
-    if a8 and m in (257, 2056):
-        assert mlp_group_width(m, 768, 3072) == {257: 1536, 2056: 768}[m]
+    if a8 and m in (257, 2056, 16448):
+        assert mlp_group_width(m, 768, 3072) == {257: 1536, 2056: 768,
+                                                 16448: 512}[m]
     for layer, want_l in ((1, 1), (5, 1)):
         lid = torch.tensor(layer, dtype=torch.int32, device="cuda")
         before = q8_mlp_stacked.launches
