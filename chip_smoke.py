@@ -1,8 +1,6 @@
 """Chip smoke test of the PyTorch port on one CUDA card (an H100).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --q8-compare DIR   # int8 rows and phase 8 of the
-                                             # checkout at DIR beside this one
 
 Phases, in order; any failure ends the script with a non-zero exit and no
 result line:
@@ -105,10 +103,12 @@ B5 (weight-only and W8A8) at the four block sites of the base width (qkv
 projection, at 257 and 16448 rows (rungs 1 and 64); B5 at layers 0, 11 and
 an out-of-range id (= 11); B6 at 257 and 16448 rows with the chooser's
 W8A8 group width; each a second time for bitwise equality. Their ms is
-the median of five batches of CUDA-event timings (rung 1 is host-bound),
-device_ms the card's time per call with the host's enqueue hidden behind
-a spin kernel; a W8A8 row's ms includes its row quantization, also timed
-alone (quantize_ms), and every row gives its TOPS. It holds the head-layout attention pair B2f/B2b at the
+the mean of one batch of CUDA-event timings, as every other row's;
+ms_median the median of five such batches (rung 1 is host-bound, and
+a batch reads the host's spread), device_ms the card's time per call
+with the host's enqueue hidden behind a spin kernel; a W8A8 row's ms
+includes its row quantization, also timed alone (quantize_ms), and every
+row gives its TOPS. It holds the head-layout attention pair B2f/B2b at the
 training shape (B=64, S=257, H=12, D=64) in bf16 and fp32, at D=80, at S=9
 with a fully masked row and at S=1360 (B=2, H=12), and B7f/B7b at both
 block sites, at 257 and 16448 rows and at 1000 (off the kernels' tiles),
@@ -199,7 +199,7 @@ KERNEL_SOURCES = ("flat_attention", "flat_attention_bwd", "conv3x3",
                   "q8_matmul", "q8_mlp", "ln_dense")
 
 
-def phase_build(check_q8_wgmma: bool = True):
+def phase_build():
     """-> (build seconds, the backward library's tensor-core instruction
     counts by kernel function, the int8 libraries' counts and ptxas
     reports by kernel function)."""
@@ -233,13 +233,12 @@ def phase_build(check_q8_wgmma: bool = True):
         print(f"[build] {name}: wgmma (HGMMA bf16, IGMMA int8) and mma.sync "
               f"(HMMA, IMMA) instructions and the ptxas report per int8 "
               f"kernel function: " + json.dumps(q8[name]), flush=True)
-    if check_q8_wgmma:
-        # each int8 GEMM runs wgmma: bf16 (weight-only) HGMMA, int8 IGMMA
-        bad = {f: v for lib_ in q8.values() for f, v in lib_.items()
-               if v.get("IGMMA" if "A_BF16" not in f else "HGMMA", 0) == 0}
-        check(len(q8["q8_matmul"]) == 6 and len(q8["q8_mlp"]) == 11
-              and not bad, f"an int8 GEMM kernel function has no wgmma "
-                           f"instruction of its kind: {bad or q8}")
+    # each int8 GEMM runs wgmma: bf16 (weight-only) HGMMA, int8 IGMMA
+    bad = {f: v for lib_ in q8.values() for f, v in lib_.items()
+           if v.get("IGMMA" if "A_BF16" not in f else "HGMMA", 0) == 0}
+    check(len(q8["q8_matmul"]) == 6 and len(q8["q8_mlp"]) == 11 and not bad,
+          f"an int8 GEMM kernel function has no wgmma instruction of its "
+          f"kind: {bad or q8}")
     return secs, sass, q8
 
 
@@ -730,9 +729,9 @@ def bound(nbytes, ops, peak):
 
 
 def time_median(fn, reps: int, batches: int = 5) -> float:
-    """The median over `batches` of time_cuda's mean ms per call: the int8
-    rows at rung 1 are host-bound, and one batch of them reads the host's
-    spread as much as the kernel."""
+    """The median over `batches` of time_cuda's mean ms per call, beside a
+    row's ms: the int8 rows at rung 1 are host-bound, and one batch of them
+    reads the host's spread as much as the kernel."""
     return float(np.median([time_cuda(fn, reps) for _ in range(batches)]))
 
 
@@ -740,7 +739,7 @@ def device_ms(fn, calls: int = 20) -> float:
     """The card's time per call of fn with the host's enqueue hidden: the
     stream first spins for about 10 ms while the host enqueues the calls,
     and the events time the calls back to back. What an int8 row costs
-    the card when its time_median is the host's."""
+    the card when its ms is the host's."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -804,8 +803,9 @@ def q8_gemm_case(site, m, a8, stacked, seed, reps=20):
     row = {"site": site, "rows": m, "k": k, "n": n, "a8": a8,
            "stacked": stacked, "max_abs_err": max(e[0] for e in errs),
            "repeat_bitwise": same, "ok": all(e[1] for e in errs) and same,
-           "ms": time_median(kernel, reps), "device_ms": device_ms(kernel),
-           "quantize_ms": time_median(lambda: quantize_rows_cuda(x), reps)
+           "ms": time_cuda(kernel, reps), "ms_median": time_median(kernel, reps),
+           "device_ms": device_ms(kernel),
+           "quantize_ms": time_cuda(lambda: quantize_rows_cuda(x), reps)
            if a8 else None,
            "plain_ms": time_cuda(
                lambda: q8_matmul_plain(x, w11, s11, a8), max(reps // 4, 3)),
@@ -844,20 +844,18 @@ def q8_mlp_case(m, a8, seed, reps=10):
         errs.append(ulp_err(got, q8_mlp_plain(x, w1, s1, b1, w2, s2, b2, li,
                                               a8), 1e-6 if a8 else 1e-3))
     lid = torch.tensor(5, dtype=torch.int32, device="cuda")
-    same = bool(torch.equal(q8_mlp_stacked(x, w1, s1, b1, w2, s2, b2, lid, a8),
-                            q8_mlp_stacked(x, w1, s1, b1, w2, s2, b2, lid,
-                                           a8)))
+    kernel = lambda: q8_mlp_stacked(  # noqa: E731
+        x, w1, s1, b1, w2, s2, b2, lid, a8)
+    same = bool(torch.equal(kernel(), kernel()))
     d1 = (w1[5].to(torch.bfloat16) * s1[5].to(torch.bfloat16)[:, None])
     d2 = (w2[5].to(torch.bfloat16) * s2[5].to(torch.bfloat16)[:, None])
     row = {"rows": m, "c": c, "h": h, "a8": a8,
            "group_width": mlp_group_width(m, c, h) if a8 else None,
            "max_abs_err": max(e[0] for e in errs),
            "repeat_bitwise": same, "ok": all(e[1] for e in errs) and same,
-           "ms": time_median(lambda: q8_mlp_stacked(x, w1, s1, b1, w2, s2,
-                                                    b2, lid, a8), reps),
-           "device_ms": device_ms(lambda: q8_mlp_stacked(
-               x, w1, s1, b1, w2, s2, b2, lid, a8)),
-           "quantize_ms": time_median(lambda: quantize_rows_cuda(x), reps)
+           "ms": time_cuda(kernel, reps), "ms_median": time_median(kernel, reps),
+           "device_ms": device_ms(kernel),
+           "quantize_ms": time_cuda(lambda: quantize_rows_cuda(x), reps)
            if a8 else None,
            "plain_ms": time_cuda(lambda: q8_mlp_plain(
                x, w1, s1, b1, w2, s2, b2, 5, a8), 3),
@@ -2178,95 +2176,9 @@ def phase_ln_dense():
             "launches_bwd": launches[1]}
 
 
-# ------------------------------------------------ int8 parent comparison
-
-def q8_only(label: str, package=None):
-    """Phases 1, 2, 3 (the int8 rows only) and 8, with ``mla_tpu_torch``
-    imported from ``package`` (another checkout's root) when given; the
-    results go to chiprun_out/q8_<label>.json. Another checkout's kernels
-    are built from its own sources into its own build directory, and its
-    int8 libraries are not held to the wgmma check."""
-    if package is not None:
-        sys.path.insert(0, str(Path(package).resolve()))
-    if not torch.cuda.is_available():
-        fail("no CUDA device: torch.cuda.is_available() is false")
-    import mla_tpu_torch
-    from mla_tpu_torch.device import set_matmul_precision
-    smi = nvidia_smi()
-    print(f"[q8 {label}] {smi}; package {Path(mla_tpu_torch.__file__).parent}",
-          flush=True)
-    set_matmul_precision()
-    build_s, _, q8_build = phase_build(check_q8_wgmma=package is None)
-    gemm, mlp = phase_q8_kernels()
-    (ROOT / "build").mkdir(exist_ok=True)
-    work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "build"))
-    try:
-        int8 = phase_int8_serving(work)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    OUT_DIR.mkdir(exist_ok=True)
-    (OUT_DIR / f"q8_{label}.json").write_text(json.dumps({
-        "device": smi, "package": str(Path(mla_tpu_torch.__file__).parent),
-        "build_s": build_s, "q8_build": q8_build, "q8_kernel_cases": gemm,
-        "q8_mlp_cases": mlp, "int8_serving": int8}, indent=1))
-
-
-def q8_compare(parent: str):
-    """Phases 3 (int8 rows) and 8 of the checkout at ``parent`` and of this
-    one, in four processes on the same card: parent, change, change,
-    parent. Prints each int8 row's ms and each int8 artifact's median per
-    request size, both runs of each side, and the device time of the
-    profiled n=64 dispatch by kernel."""
-    runs = [("parent_1", parent), ("change_1", None), ("change_2", None),
-            ("parent_2", parent)]
-    for label, pkg in runs:
-        cmd = [sys.executable, str(Path(__file__).resolve()), "--q8-only",
-               label] + ([str(Path(pkg).resolve())] if pkg else [])
-        rc = subprocess.run(cmd, cwd=ROOT).returncode
-        check(rc == 0, f"the int8 run {label} failed (exit {rc})")
-    res = {label: json.loads((OUT_DIR / f"q8_{label}.json").read_text())
-           for label, _ in runs}
-
-    def key(r):
-        return (("B5" if r.get("stacked") else "B4") if "site" in r
-                else "B6", r.get("site", ""), r["rows"], r["a8"])
-    table = {}
-    for label in res:
-        for r in (res[label]["q8_kernel_cases"] + res[label]["q8_mlp_cases"]):
-            table.setdefault(key(r), {})[label] = (r["ms"],
-                                                   r.get("device_ms"))
-    print("[q8 compare] kernel (ms, device ms) (parent_1, change_1, "
-          "change_2, parent_2):")
-    for k, v in table.items():
-        print(f"[q8 compare] {k}: " + json.dumps([v.get(lb) for lb, _ in runs]))
-    served = {}
-    for label in res:
-        bf = res[label]["int8_serving"].get("bfloat16_rungs")
-        if bf:
-            served.setdefault("bfloat16", {})[label] = {
-                "median_ms": {n: v["median_ms"] for n, v in bf.items()}}
-        for kind, r in res[label]["int8_serving"].items():
-            if kind in ("fp32_bytes", "bfloat16_rungs"):
-                continue
-            prof = r["profiles"]["64"]        # JSON keys are strings
-            served.setdefault(kind, {})[label] = {
-                "median_ms": {n: v["median_ms"] for n, v in r["rungs"].items()},
-                "n64_device_ms": prof["device_ms"], "n64_top": prof["top"][:6]}
-    for kind, v in served.items():
-        print(f"[q8 compare] {kind}: " + json.dumps(v))
-    OUT_DIR.mkdir(exist_ok=True)
-    (OUT_DIR / "q8_compare.json").write_text(json.dumps(
-        {"kernels": {str(k): v for k, v in table.items()}, "serving": served},
-        indent=1))
-
-
 # ---------------------------------------------------------------- main
 
 def main():
-    if sys.argv[1:2] == ["--q8-only"]:
-        return q8_only(sys.argv[2], sys.argv[3] if len(sys.argv) > 3 else None)
-    if sys.argv[1:2] == ["--q8-compare"]:
-        return q8_compare(sys.argv[2])
     if not torch.cuda.is_available():
         fail("no CUDA device: torch.cuda.is_available() is false")
     smi = nvidia_smi()

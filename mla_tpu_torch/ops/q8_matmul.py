@@ -264,11 +264,10 @@ def _on_card(x):
 
 
 def _fp32(b):
-    """A bias as the kernel reads it: fp32 and contiguous (itself when it
-    already is, as the serving model's biases are)."""
-    if b.dtype == torch.float32 and b.is_contiguous():
-        return b
-    return b.float().contiguous()
+    """A bias as the kernel reads it, fp32: itself when it already is, as
+    the serving model's biases are (``_check_cuda`` has made sure it is
+    contiguous)."""
+    return b if b.dtype == torch.float32 else b.float()
 
 
 def quantize_rows_cuda(x2):
@@ -405,34 +404,27 @@ def q8_mlp_stacked(x, w1, s1, b1, w2, s2, b2, layer, a8: bool = False):
 q8_mlp_stacked.launches = 0
 
 
-# the loaded libraries with their argument types set, by source name
-_LIBS = {}
-
-
+@functools.cache
 def _gemm_lib() -> ctypes.CDLL:
-    lib = _LIBS.get("q8_matmul")
-    if lib is None:
-        lib = _build.load("q8_matmul")
-        fn = lib.mla_q8_quantize_rows
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fn = lib.mla_q8_matmul
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int,
-                                               ctypes.c_void_p] + [
-            ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _LIBS["q8_matmul"] = lib
+    """The int8 GEMM library, its argument types set once."""
+    lib = _build.load("q8_matmul")
+    fn = lib.mla_q8_quantize_rows
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.mla_q8_matmul
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p] + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib
 
 
+@functools.cache
 def _mlp_lib() -> ctypes.CDLL:
-    lib = _LIBS.get("q8_mlp")
-    if lib is None:
-        lib = _build.load("q8_mlp")
-        fn = lib.mla_q8_mlp
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] + [
-            ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _LIBS["q8_mlp"] = lib
+    """The int8 MLP library, its argument types set once."""
+    lib = _build.load("q8_mlp")
+    fn = lib.mla_q8_mlp
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] + [
+        ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib
