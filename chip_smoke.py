@@ -10,18 +10,20 @@ result line:
 2. build    — every CUDA source of the port compiled with nvcc for sm_90a,
               one nvcc per source, all started together; the ptxas reports
               printed; the tensor-core instructions (HMMA / IMMA for
-              mma.sync, HGMMA / IGMMA for wgmma) of each attention backward
-              and int8 GEMM kernel function counted in cuobjdump -sass:
-              every bf16 attention backward one (mma_bwd_*) must have some,
-              and every int8 GEMM one wgmma of its kind (HGMMA weight-only,
-              IGMMA W8A8), printed with its ptxas registers and spills.
+              mma.sync, HGMMA / IGMMA for wgmma) of each attention forward,
+              attention backward and int8 GEMM kernel function counted in
+              cuobjdump -sass: every bf16 attention one (mma_fwd_*,
+              mma_bwd_*) must have some, and every int8 GEMM one wgmma of
+              its kind (HGMMA weight-only, IGMMA W8A8), printed with its
+              ptxas registers and spills.
 3. kernels  — each kernel against its plain PyTorch version on the card at
               the shapes the serving and training paths give it (and a few
               edge shapes), with the tolerance stated; kernel, plain and
               library times from CUDA events; the least time the card could
-              take. The attention backward rows (B1b, B2b) also give their
-              TFLOP/s on the five products the bound counts and whether a
-              second call repeats the first bit for bit (it must). The 3x3
+              take. Every attention row (B1f, B1b, B2f, B2b) also says
+              whether a second call repeats the first bit for bit (it
+              must); the backward rows give their TFLOP/s on the five
+              products the bound counts. The 3x3
               conv (B3) at the 8 CREMA-D ResNet-18 body shapes
               in bf16 and fp32 and one odd edge, and its dx through the
               Conv3x3 autograd Function against the plain version's
@@ -200,9 +202,9 @@ KERNEL_SOURCES = ("flat_attention", "flat_attention_bwd", "conv3x3",
 
 
 def phase_build():
-    """-> (build seconds, the backward library's tensor-core instruction
-    counts by kernel function, the int8 libraries' counts and ptxas
-    reports by kernel function)."""
+    """-> (build seconds, the attention libraries' tensor-core instruction
+    counts and ptxas reports by kernel function, forward and backward, the
+    int8 libraries' counts and ptxas reports by kernel function)."""
     from mla_tpu_torch.ops import _build
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:   # nvcc each
@@ -212,17 +214,24 @@ def phase_build():
     for lib in libs:
         print(f"[build] ptxas report for {lib.name}:")
         print(lib.with_suffix(".log").read_text().strip())
-    sass = sass_mma_counts(libs[KERNEL_SOURCES.index("flat_attention_bwd")],
-                           bwd_function)
-    print("[build] tensor-core instructions (cuobjdump -sass) per backward "
-          "kernel function: " + json.dumps(sass), flush=True)
-    # the bf16 kernels (mma_bwd_*) must run their products on the tensor
-    # cores; the fp32 ones (fma_bwd_*) stay on the FMA pipes
-    bf16 = {k: v for k, v in sass.items() if k.startswith("mma_bwd_")}
-    check(len(bf16) == 2 * 3 and all(v["HMMA"] + v["HGMMA"] > 0
-                                     for v in bf16.values()),
-          f"a bf16 attention backward kernel has no tensor-core "
-          f"instruction: {sass}")
+    sass = {}
+    for name, kind, n_bf16 in (("flat_attention", "forward", 3),
+                               ("flat_attention_bwd", "backward", 2 * 3)):
+        lib = libs[KERNEL_SOURCES.index(name)]
+        counts = sass_mma_counts(lib, attention_function)
+        reports = ptxas_reports(lib.with_suffix(".log"), attention_function)
+        sass[kind] = {f: {**counts.get(f, {}), **reports.get(f, {})}
+                      for f in sorted(set(counts) | set(reports))}
+        print(f"[build] tensor-core instructions (cuobjdump -sass) and the "
+              f"ptxas report per attention {kind} kernel function: "
+              + json.dumps(sass[kind]), flush=True)
+        # the bf16 kernels (mma_*) must run their products on the tensor
+        # cores; the fp32 ones (fma_*) stay on the FMA pipes
+        bf16 = {k: v for k, v in sass[kind].items() if k.startswith("mma_")}
+        check(len(bf16) == n_bf16 and all(
+            v.get("HMMA", 0) + v.get("HGMMA", 0) > 0 for v in bf16.values()),
+              f"a bf16 attention {kind} kernel has no tensor-core "
+              f"instruction: {sass[kind]}")
     q8 = {}
     for name in ("q8_matmul", "q8_mlp"):
         lib = libs[KERNEL_SOURCES.index(name)]
@@ -242,11 +251,11 @@ def phase_build():
     return secs, sass, q8
 
 
-def bwd_function(mangled: str):
-    """'mma_bwd_dq_kernel<64>' for an attention backward kernel function's
-    mangled name, else None."""
+def attention_function(mangled: str):
+    """'mma_fwd_kernel<64>' or 'mma_bwd_dq_kernel<64>' for an attention
+    kernel function's mangled name, else None."""
     import re
-    m = re.search(r"((?:mma|fma)_bwd_[a-z]+_kernel)I((?:Li\d+E)+)E",
+    m = re.search(r"((?:mma|fma)_(?:fwd|bwd_[a-z]+)_kernel)I((?:Li\d+E)+)E",
                   mangled)
     if m is None:
         return None
@@ -338,11 +347,14 @@ def attention_case(b, s, h, d, dtype, fully_masked_row=False, seed=0,
     mask = torch.from_numpy(mask_np).cuda()
     got = flash_attention_flat(qkv, mask, h)
     torch.cuda.synchronize()
+    # no atomics: a second call gives the same bits
+    repeat_bitwise = torch.equal(got, flash_attention_flat(qkv, mask, h))
     want = flat_attention_reference(qkv, mask, h)
     atol, rtol = TOL[dtype]
     diff = (got.float() - want.float()).abs()
     err = float(diff.max())
-    ok = bool(torch.all(diff <= atol + rtol * want.float().abs()))
+    ok = repeat_bitwise and bool(
+        torch.all(diff <= atol + rtol * want.float().abs()))
     if fully_masked_row:      # the mean of V over the S real keys
         v_mean = qkv[-1, :, 2 * c:].float().mean(dim=0)
         ok = ok and bool(torch.allclose(got[-1].float(),
@@ -358,7 +370,8 @@ def attention_case(b, s, h, d, dtype, fully_masked_row=False, seed=0,
     sdpa = torch.nn.functional.scaled_dot_product_attention
     row = {"shape": [b, s, h, d], "dtype": str(dtype).replace("torch.", ""),
            "fully_masked_row": fully_masked_row, "max_abs_err": err,
-           "atol": atol, "rtol": rtol, "ok": ok,
+           "atol": atol, "rtol": rtol, "repeat_bitwise": repeat_bitwise,
+           "ok": ok,
            "ms": time_cuda(lambda: flash_attention_flat(qkv, mask, h), reps),
            "plain_ms": time_cuda(
                lambda: flat_attention_reference(qkv, mask, h), reps),
@@ -476,10 +489,13 @@ def head_attention_case(b, s, h, d, dtype, fully_masked_row=False, seed=0,
     q, k, v, _, mask = head_inputs(b, s, h, d, dtype, fully_masked_row, seed)
     got = flash_attention(q, k, v, mask)
     torch.cuda.synchronize()
+    # no atomics: a second call gives the same bits
+    repeat_bitwise = torch.equal(got, flash_attention(q, k, v, mask))
     want = attention_reference(q, k, v, mask)
     atol, rtol = TOL[dtype]
     diff = (got.float() - want.float()).abs()
-    ok = bool(torch.all(diff <= atol + rtol * want.float().abs()))
+    ok = repeat_bitwise and bool(
+        torch.all(diff <= atol + rtol * want.float().abs()))
     if fully_masked_row:      # the mean of V over the S real keys
         ok = ok and bool(torch.allclose(
             got[-1].float(), v[-1].float().mean(dim=1, keepdim=True)
@@ -490,7 +506,7 @@ def head_attention_case(b, s, h, d, dtype, fully_masked_row=False, seed=0,
     row = {"shape": [b, s, h, d], "dtype": str(dtype).replace("torch.", ""),
            "fully_masked_row": fully_masked_row,
            "max_abs_err": float(diff.max()), "atol": atol, "rtol": rtol,
-           "ok": ok,
+           "repeat_bitwise": repeat_bitwise, "ok": ok,
            "ms": time_cuda(lambda: flash_attention(q, k, v, mask), reps),
            "plain_ms": time_cuda(
                lambda: attention_reference(q, k, v, mask), reps),
@@ -2228,6 +2244,7 @@ def main():
                 "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
                 "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
                 "library_ms": fwd["library_ms"],
+                "repeat_bitwise": all(r["repeat_bitwise"] for r in rows),
                 # over every case of phase 3 (both dtypes, D=80, S=9)
                 "max_abs_err_all": max(r["max_abs_err"] for r in rows),
                 "all_ok": all(r["ok"] for r in rows)},
@@ -2312,6 +2329,7 @@ def main():
          "max_abs_err": hf["max_abs_err"], "ms": hf["ms"],
          "plain_ms": hf["plain_ms"], "bound_ms": hf["bound_ms"],
          "bound_by": hf["bound_by"], "library_ms": hf["library_ms"],
+         "repeat_bitwise": all(r["repeat_bitwise"] for r in head_rows),
          # over every case of phase 3 (both dtypes, D=80, S=9, S=1360)
          "max_abs_err_all": max(r["max_abs_err"] for r in head_rows),
          "all_ok": all(r["ok"] for r in head_rows)},
@@ -2358,7 +2376,7 @@ def main():
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
         "device": smi, "torch": torch.__version__, "build_s": build_s,
-        "bwd_sass_mma": sass, "q8_build": q8_sass,
+        "attention_build": sass, "q8_build": q8_sass,
         "kernel_cases": rows, "bwd_kernel_cases": bwd_rows,
         "head_kernel_cases": head_rows, "head_bwd_kernel_cases": head_bwd_rows,
         "ln_kernel_cases": ln_rows, "ln_bwd_kernel_cases": ln_bwd_rows,

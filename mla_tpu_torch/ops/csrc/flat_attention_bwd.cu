@@ -67,7 +67,9 @@
 // -inf past S), with the per-key multiplier and addend set once per 8 keys.
 // A ragged tail (S = 257 = 4*64 + 1) costs one 16-row step, not a tile: the
 // products stop at the last 16 keys (queries) that hold a real one, and a
-// warp whose 16 rows all lie past S only helps load.
+// warp whose 16 rows all lie past S only helps load. The cp.async, ldmatrix
+// and mma.sync helpers and the tile products are attention_mma.cuh's,
+// shared with the forward (flat_attention.cu).
 //
 // fp32 stays on the FP32 FMA pipes (fma_bwd_*_kernel), since the port runs
 // fp32 products in full fp32: each row (query or key) belongs to 4
@@ -78,6 +80,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -125,14 +129,6 @@ __device__ __forceinline__ void store4(char* p, const float* f) {
   *reinterpret_cast<uint4*>(p) =
       make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
                  __float_as_uint(f[2]), __float_as_uint(f[3]));
-}
-
-// Sum over the 4 threads of a row (neighbouring lanes). Every lane of the
-// warp must call it.
-__device__ __forceinline__ float row_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x;
 }
 
 // Rows r0 .. r0+TT-1 of one (batch row, head) plane of D-element rows at
@@ -258,8 +254,8 @@ fma_bwd_dq_kernel(const Args args) {
 #pragma unroll
       for (int u = 0; u < CH; ++u) {
         const int r = c0 + u;
-        const float sd = row_sum(dot_part<D>(q, Ks[r], part));
-        dp[u] = row_sum(dot_part<D>(g, Vs[r], part));
+        const float sd = quad_sum(dot_part<D>(q, Ks[r], part));
+        dp[u] = quad_sum(dot_part<D>(g, Vs[r], part));
         float sc = sd * scale;
         if (Ms[r] > 0.f) sc = kMasked;  // replace the scaled score
         if (r >= nk) sc = -INFINITY;    // past S: weight exactly 0
@@ -297,8 +293,8 @@ fma_bwd_dq_kernel(const Args args) {
     const int nk = min(TT, S - k0);
     for (int r = 0; r < nk; ++r) {
       if (Ms[r] > 0.f) continue;  // ds = 0 at a masked key (same for all)
-      const float sd = row_sum(dot_part<D>(q, Ks[r], part));
-      const float dp = row_sum(dot_part<D>(g, Vs[r], part));
+      const float sd = quad_sum(dot_part<D>(q, Ks[r], part));
+      const float dp = quad_sum(dot_part<D>(g, Vs[r], part));
       const float p = expf(sd * scale - m) / l;
       const float ds = p * (dp - delta);
       axpy_part<D>(dq, ds, Ks[r], part);
@@ -350,8 +346,8 @@ fma_bwd_dkdv_kernel(const Args args) {
     __syncthreads();
     const int nq = min(TT, S - i0);
     for (int r = 0; r < nq; ++r) {
-      const float sd = row_sum(dot_part<D>(k, Qs[r], part));
-      const float dp = row_sum(dot_part<D>(v, Gs[r], part));
+      const float sd = quad_sum(dot_part<D>(k, Qs[r], part));
+      const float dp = quad_sum(dot_part<D>(v, Gs[r], part));
       const float sc = masked ? kMasked : sd * scale;
       const float p = expf(sc - Sm[r]) / Sl[r];
       const float ds = masked ? 0.f : p * (dp - Sd[r]);
@@ -374,180 +370,7 @@ constexpr int NTH = 128;        // 4 warps of 16 rows
 // The bf16 kernels take exponentials base 2: scores scaled by scale*log2(e)
 // (a masked one replaced by -1e7*log2(e)), row maxima in that unit, so one
 // ex2 gives exp(s - m).
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMasked2 = kMasked * kLog2e;
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const uint32_t a = __bfloat16_as_ushort(__float2bfloat16_rn(lo));
-  const uint32_t b = __bfloat16_as_ushort(__float2bfloat16_rn(hi));
-  return a | (b << 16);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
-                                          bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(pred ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 b16 matrices from shared memory; each lane gives one row address
-template <bool TRANS>
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const uint16_t* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  if constexpr (TRANS)
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(s));
-  else
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(s));
-}
-
-__device__ __forceinline__ float ex2(float x) {   // 2^x; 2^-inf = 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-// Rows r0 .. r0+BT-1 of one plane (D bf16 each, `row_bytes` apart) -> a
-// shared tile of rows D + 8 halves apart, by cp.async; rows past S are zero.
-template <int D>
-__device__ __forceinline__ void stage_rows(uint16_t* dst, const char* plane,
-                                           long long row_bytes, int r0,
-                                           int S) {
-  constexpr int P = D + 8, CPR = D / 8;   // 16-byte pieces per row
-  for (int idx = threadIdx.x; idx < BT * CPR; idx += NTH) {
-    const int r = idx / CPR, c = idx % CPR;
-    const int j = r0 + r;
-    const bool ok = j < S;
-    cp_async16(dst + r * P + 8 * c,
-               plane + (ok ? j : 0) * row_bytes + 16 * c, ok);
-  }
-}
-
-// src[r0 .. r0+BT-1] -> dst by cp.async; entries past S are zero
-__device__ __forceinline__ void stage_floats(float* dst, const float* src,
-                                             int r0, int S) {
-  for (int r = threadIdx.x; r < BT; r += NTH) {
-    const int j = r0 + r;
-    cp_async4(dst + r, src + (j < S ? j : 0), j < S);
-  }
-}
-
-// The A fragments (m16n8k16, one per 16 columns) of rows m0 .. m0+15 of a
-// plane; rows past S are zero.
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (*f)[4], const char* plane,
-                                       long long row_bytes, int m0, int S,
-                                       int g, int t) {
-  const int r0 = m0 + g, r1 = r0 + 8;
-  const char* p0 = plane + r0 * row_bytes + 4 * t;
-  const char* p1 = plane + r1 * row_bytes + 4 * t;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = 32 * kk;                  // byte column of the k-step
-    f[kk][0] = r0 < S ? __ldg(reinterpret_cast<const unsigned*>(p0 + c)) : 0u;
-    f[kk][1] = r1 < S ? __ldg(reinterpret_cast<const unsigned*>(p1 + c)) : 0u;
-    f[kk][2] = r0 < S ? __ldg(reinterpret_cast<const unsigned*>(p0 + c + 16))
-                      : 0u;
-    f[kk][3] = r1 < S ? __ldg(reinterpret_cast<const unsigned*>(p1 + c + 16))
-                      : 0u;
-  }
-}
-
-// acc[j] (j < CK/8: tile rows c0 + 8j ..) += A . T[c0 .., :]^T, A the 16 x D
-// fragments `a`, T a staged tile; 16 tile rows at a time while they hold
-// one of the nc real rows.
-template <int D>
-__device__ __forceinline__ void product_nt(float (*acc)[4],
-                                           const uint32_t (*a)[4],
-                                           const uint16_t* T, int c0, int nc,
-                                           int mi, int mr) {
-  constexpr int P = D + 8;
-#pragma unroll
-  for (int jp = 0; jp < CK / 16; ++jp) {
-    if (jp * 16 < nc) {
-#pragma unroll
-      for (int kd = 0; kd < D / 16; ++kd) {
-        // matrices: (n, k), (n, k + 8), (n + 8, k), (n + 8, k + 8)
-        uint32_t r[4];
-        ldsm_x4<false>(r, &T[(c0 + 16 * jp + (mi >> 1) * 8 + mr) * P +
-                             16 * kd + (mi & 1) * 8]);
-        mma_bf16(acc[2 * jp], a[kd], r[0], r[1]);
-        mma_bf16(acc[2 * jp + 1], a[kd], r[2], r[3]);
-      }
-    }
-  }
-}
-
-// acc[n] (n < D/8) += X . T[c0 .. c0+CK-1, :], X the 16 x CK fragments `x`
-// (one per 16 tile rows), 16 tile rows at a time while they hold one of the
-// nc real rows.
-template <int D>
-__device__ __forceinline__ void product_nn(float (*acc)[4],
-                                           const uint32_t (*x)[4],
-                                           const uint16_t* T, int c0, int nc,
-                                           int mi, int mr) {
-  constexpr int P = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < CK / 16; ++kk) {
-    if (kk * 16 < nc) {
-#pragma unroll
-      for (int jd = 0; jd < D / 16; ++jd) {
-        // matrices: (k, n), (k + 8, n), (k, n + 8), (k + 8, n + 8)
-        uint32_t r[4];
-        ldsm_x4<true>(r, &T[(c0 + 16 * kk + (mi & 1) * 8 + mr) * P +
-                            16 * jd + (mi >> 1) * 8]);
-        mma_bf16(acc[2 * jd], x[kk], r[0], r[1]);
-        mma_bf16(acc[2 * jd + 1], x[kk], r[2], r[3]);
-      }
-    }
-  }
-}
-
-// fp32 accumulator fragments of a 16 x CK block -> its bf16 A fragments
-__device__ __forceinline__ void to_a(uint32_t (*x)[4], const float (*c)[4]) {
-#pragma unroll
-  for (int kk = 0; kk < CK / 16; ++kk) {
-    x[kk][0] = pack_bf16x2(c[2 * kk][0], c[2 * kk][1]);
-    x[kk][1] = pack_bf16x2(c[2 * kk][2], c[2 * kk][3]);
-    x[kk][2] = pack_bf16x2(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-    x[kk][3] = pack_bf16x2(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-  }
-}
 
 // rows m0 + g and m0 + g + 8 of accumulator fragments (D/8 of them), times
 // mul, rounded to bf16 -> a plane; rows past S are not written
@@ -595,9 +418,9 @@ mma_bwd_dq_kernel(const Args args) {
   // tile `it` of the two sweeps (both walk the keys) -> buffer `buf`
   auto stage = [&](int it, int buf) {
     const int k0 = (it % nt) * BT;
-    stage_rows<D>(Ks[buf], args.k + plane, args.in.s, k0, S);
-    stage_rows<D>(Vs[buf], args.v + plane, args.in.s, k0, S);
-    stage_floats(Ms[buf], mrow, k0, S);
+    stage_rows<D, BT, NTH>(Ks[buf], args.k + plane, args.in.s, k0, S);
+    stage_rows<D, BT, NTH>(Vs[buf], args.v + plane, args.in.s, k0, S);
+    stage_floats<BT, NTH>(Ms[buf], mrow, k0, S);
     cp_async_commit();
   };
   stage(0, 0);
@@ -629,7 +452,7 @@ mma_bwd_dq_kernel(const Args args) {
       const long long i0 = ((long long)b * args.H + h) * S;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const float lt = row_sum(l[r]), at = row_sum(a[r]);
+        const float lt = quad_sum(l[r]), at = quad_sum(a[r]);
         a[r] = at / lt;           // delta
         l[r] = 1.f / lt;
         const int row = q0 + g + 8 * r;
@@ -652,8 +475,8 @@ mma_bwd_dq_kernel(const Args args) {
         for (int j = 0; j < NJ; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) { s[j][e] = 0.f; dp[j][e] = 0.f; }
-        product_nt<D>(s, qf, K, c0, nc, mi, mr);
-        product_nt<D>(dp, gf, V, c0, nc, mi, mr);
+        product_nt<D, CK>(s, qf, K, c0, nc, mi, mr);
+        product_nt<D, CK>(dp, gf, V, c0, nc, mi, mr);
         // this lane's keys (2 of every 8): the score is s * mul + add.
         // Sweep 1: the scaled score, kMasked2 at a masked key, -inf past S.
         // Sweep 2 needs ds alone, 0 at both: -inf.
@@ -706,8 +529,8 @@ mma_bwd_dq_kernel(const Args args) {
               s[j][e] = p * (dp[j][e] - a[r]);
             }
           uint32_t dsf[CK / 16][4];
-          to_a(dsf, s);
-          product_nn<D>(dq, dsf, K, c0, nc, mi, mr);
+          to_a<CK>(dsf, s);
+          product_nn<D, CK>(dq, dsf, K, c0, nc, mi, mr);
         }
       }
     }
@@ -745,10 +568,10 @@ mma_bwd_dkdv_kernel(const Args args) {
   // and zero statistics (1/sum = 0), so its P and ds are exactly 0
   auto stage = [&](int it, int buf) {
     const int i0 = it * BT;
-    stage_rows<D>(Qs[buf], args.q + plane, args.in.s, i0, S);
-    stage_rows<D>(Gs[buf], args.dout + oplane, args.os.s, i0, S);
+    stage_rows<D, BT, NTH>(Qs[buf], args.q + plane, args.in.s, i0, S);
+    stage_rows<D, BT, NTH>(Gs[buf], args.dout + oplane, args.os.s, i0, S);
 #pragma unroll
-    for (int w = 0; w < 3; ++w) stage_floats(Ss[buf][w], st + w * n, i0, S);
+    for (int w = 0; w < 3; ++w) stage_floats<BT, NTH>(Ss[buf][w], st + w * n, i0, S);
     cp_async_commit();
   };
   stage(0, 0);
@@ -796,8 +619,8 @@ mma_bwd_dkdv_kernel(const Args args) {
         for (int j = 0; j < NJ; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) { s[j][e] = 0.f; dp[j][e] = 0.f; }
-        product_nt<D>(s, kf, Q, c0, nc, mi, mr);
-        product_nt<D>(dp, vf, G, c0, nc, mi, mr);
+        product_nt<D, CK>(s, kf, Q, c0, nc, mi, mr);
+        product_nt<D, CK>(dp, vf, G, c0, nc, mi, mr);
         // P^T into s, ds^T into dp (0 at a masked key)
 #pragma unroll
         for (int j = 0; j < NJ; ++j)
@@ -814,10 +637,10 @@ mma_bwd_dkdv_kernel(const Args args) {
             }
           }
         uint32_t pf[CK / 16][4], dsf[CK / 16][4];
-        to_a(pf, s);
-        to_a(dsf, dp);
-        product_nn<D>(dv, pf, G, c0, nc, mi, mr);   // dv += P^T . dO
-        product_nn<D>(dk, dsf, Q, c0, nc, mi, mr);  // dk += ds^T . Q
+        to_a<CK>(pf, s);
+        to_a<CK>(dsf, dp);
+        product_nn<D, CK>(dv, pf, G, c0, nc, mi, mr);   // dv += P^T . dO
+        product_nn<D, CK>(dk, dsf, Q, c0, nc, mi, mr);  // dk += ds^T . Q
       }
     }
     __syncthreads();

@@ -41,10 +41,17 @@ def _inputs(torch, b, s, h, d, dtype, seed=0):
             torch.from_numpy(mask).to(dev))
 
 
+# lengths around the kernels' 64-row tiles and their 16-row steps, at each
+# built head dim
+RAGGED = [(s, d) for d in (16, 64, 80)
+          for s in (1, 15, 16, 17, 63, 64, 65, 257)]
+
+
 @pytest.mark.parametrize("dtype_name,atol", [("float32", 1e-5),
                                              ("bfloat16", 2e-2)])
 @pytest.mark.parametrize("b,s,h,d", [(2, 9, 4, 16), (3, 70, 4, 16),
-                                     (8, 257, 12, 64), (2, 257, 16, 80)])
+                                     (8, 257, 12, 64), (2, 257, 16, 80)]
+                         + [(3, s, 2, d) for s, d in RAGGED])
 def test_kernel_matches_plain(b, s, h, d, dtype_name, atol):
     torch = _cuda()
     from mla_tpu_torch.device import set_matmul_precision
@@ -82,12 +89,6 @@ def test_kernel_rejects_unbuilt_head_dims():
     qkv = torch.zeros(1, 4, 3 * 2 * 32, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention_flat(qkv, None, 2)
-
-
-# lengths around the backward's 64-row tiles and its 16-row steps, at each
-# built head dim
-RAGGED = [(s, d) for d in (16, 64, 80)
-          for s in (1, 15, 16, 17, 63, 64, 65, 257)]
 
 
 @pytest.mark.parametrize("dtype_name,atol,rtol", [("float32", 1e-5, 1e-5),
@@ -700,6 +701,46 @@ def test_head_and_flat_bwd_give_equal_bits(b, s, h, d, dtype_name):
     as_flat = torch.stack(flash_attention_bwd(*heads)).permute(
         1, 3, 0, 2, 4).reshape(b, s, 3 * h * d)
     assert torch.equal(dqkv, as_flat)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,d", [(8, 257, 12, 64), (2, 65, 16, 80),
+                                     (3, 17, 4, 16)]
+                         + [(3, s, 2, d) for s, d in RAGGED])
+def test_fwd_kernels_repeat_bitwise(b, s, h, d, dtype_name):
+    """No atomics and no order that changes: two calls of B1f, and of B2f,
+    give the same bits."""
+    torch = _cuda()
+    from mla_tpu_torch.ops.attention import (flash_attention,
+                                             flash_attention_flat)
+
+    flat, heads = _flat_and_heads(torch, b, s, h, d,
+                                  getattr(torch, dtype_name))
+    qkv, _, mask = flat
+    first = flash_attention_flat(qkv, mask, h)
+    assert torch.equal(first, flash_attention_flat(qkv, mask, h))
+    q, k, v, _, mask = heads
+    first = flash_attention(q, k, v, mask)
+    assert torch.equal(first, flash_attention(q, k, v, mask))
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,d", [(8, 257, 12, 64), (2, 65, 16, 80),
+                                     (3, 17, 4, 16)])
+def test_head_and_flat_fwd_give_equal_bits(b, s, h, d, dtype_name):
+    """B2f and B1f run one kernel per element type on two layouts: the same
+    values give bit-equal outputs (a fully masked row included)."""
+    torch = _cuda()
+    from mla_tpu_torch.ops.attention import (flash_attention,
+                                             flash_attention_flat)
+
+    flat, heads = _flat_and_heads(torch, b, s, h, d,
+                                  getattr(torch, dtype_name))
+    qkv, _, mask = flat
+    q, k, v, _, _ = heads
+    as_flat = flash_attention(q, k, v, mask).transpose(1, 2).reshape(
+        b, s, h * d)
+    assert torch.equal(flash_attention_flat(qkv, mask, h), as_flat)
 
 
 def test_serving_on_cuda_takes_the_flat_route_with_the_switch_off(tmp_path):
