@@ -11,11 +11,12 @@ result line:
               one nvcc per source, all started together; the ptxas reports
               printed; the tensor-core instructions (HMMA / IMMA for
               mma.sync, HGMMA / IGMMA for wgmma) of each attention forward,
-              attention backward and int8 GEMM kernel function counted in
-              cuobjdump -sass: every bf16 attention one (mma_fwd_*,
-              mma_bwd_*) must have some, and every int8 GEMM one wgmma of
-              its kind (HGMMA weight-only, IGMMA W8A8), printed with its
-              ptxas registers and spills.
+              attention backward, int8 GEMM and 3x3 conv kernel function
+              counted in cuobjdump -sass: every bf16 attention one
+              (mma_fwd_*, mma_bwd_*) must have some, every int8 GEMM one
+              wgmma of its kind (HGMMA weight-only, IGMMA W8A8) and every
+              bf16 conv one (conv3x3_wgmma_kernel<...>) HGMMA and no HMMA,
+              printed with its ptxas registers and spills.
 3. kernels  — each kernel against its plain PyTorch version on the card at
               the shapes the serving and training paths give it (and a few
               edge shapes), with the tolerance stated; kernel, plain and
@@ -25,7 +26,11 @@ result line:
               must); the backward rows give their TFLOP/s on the five
               products the bound counts. The 3x3
               conv (B3) at the 8 CREMA-D ResNet-18 body shapes
-              in bf16 and fp32 and one odd edge, and its dx through the
+              in bf16 and fp32 and one odd edge, each called twice for
+              bitwise equality, with its TFLOP/s and its kernel's device
+              time alone (device_ms, torch.profiler; ms includes the
+              weight packing and the host; cuDNN's device time beside
+              its library_ms), and its dx through the
               Conv3x3 autograd Function against the plain version's
               autograd.
 4. serving  — the port's serving path at full width: the base M3AE
@@ -204,7 +209,8 @@ KERNEL_SOURCES = ("flat_attention", "flat_attention_bwd", "conv3x3",
 def phase_build():
     """-> (build seconds, the attention libraries' tensor-core instruction
     counts and ptxas reports by kernel function, forward and backward, the
-    int8 libraries' counts and ptxas reports by kernel function)."""
+    int8 libraries' and the conv library's counts and ptxas reports by
+    kernel function)."""
     from mla_tpu_torch.ops import _build
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:   # nvcc each
@@ -248,7 +254,23 @@ def phase_build():
     check(len(q8["q8_matmul"]) == 6 and len(q8["q8_mlp"]) == 11 and not bad,
           f"an int8 GEMM kernel function has no wgmma instruction of its "
           f"kind: {bad or q8}")
-    return secs, sass, q8
+    lib = libs[KERNEL_SOURCES.index("conv3x3")]
+    counts = sass_mma_counts(lib, conv_function)
+    reports = ptxas_reports(lib.with_suffix(".log"), conv_function)
+    conv = {f: {**counts.get(f, {}), **reports.get(f, {})}
+            for f in sorted(set(counts) | set(reports))}
+    print("[build] conv3x3: wgmma (HGMMA) and mma.sync (HMMA) instructions "
+          "and the ptxas report per conv kernel function: "
+          + json.dumps(conv), flush=True)
+    # every bf16 conv kernel (one per tile shape) runs wgmma; the fp32 one
+    # stays on the FMA pipes
+    bf16 = {k: v for k, v in conv.items() if k.startswith("conv3x3_wgmma")}
+    check(len(bf16) == len(CONV_TILES) and all(
+        v.get("HGMMA", 0) > 0 and v.get("HMMA", 0) == 0
+        for v in bf16.values()),
+          f"a bf16 conv kernel function has no wgmma instruction (or an "
+          f"mma.sync one): {conv}")
+    return secs, sass, q8, conv
 
 
 def attention_function(mangled: str):
@@ -274,6 +296,21 @@ def q8_function(mangled: str):
     if m is None:
         return None
     return f"gemm_kernel<{Q8_KINDS[int(m[1])]}, {m[2]}, {m[3]}>"
+
+
+# csrc/conv3x3.cu's bf16 kernel instantiations: (pixels a warpgroup, filter
+# groups of 64 a tile)
+CONV_TILES = ((128, 2), (256, 2), (128, 1))
+
+
+def conv_function(mangled: str):
+    """'conv3x3_wgmma_kernel<128, 1>' or 'conv3x3_f32_kernel' for a conv
+    kernel function's mangled name, else None."""
+    import re
+    m = re.search(r"conv3x3_wgmma_kernelILi(\d+)ELi(\d)E", mangled)
+    if m:
+        return f"conv3x3_wgmma_kernel<{m[1]}, {m[2]}>"
+    return "conv3x3_f32_kernel" if "conv3x3_f32_kernel" in mangled else None
 
 
 def sass_mma_counts(lib: Path, name_of) -> dict:
@@ -630,6 +667,8 @@ def conv_case(name, b, h, w, c, dtype, seed=0, reps=20):
                                "cuda", dtype)
     got = conv3x3(x, wt)
     torch.cuda.synchronize()
+    # no atomics, no split sums: a second call gives the same bits
+    repeat_bitwise = torch.equal(got, conv3x3(x, wt))
     want = conv3x3_reference(x, wt).float()
     atol, rtol = TOL_CONV[dtype]
     diff = (got.float() - want).abs()
@@ -643,18 +682,42 @@ def conv_case(name, b, h, w, c, dtype, seed=0, reps=20):
     row = {"name": name, "shape": [b, h, w, c],
            "dtype": str(dtype).replace("torch.", ""),
            "max_abs_err": float(diff.max()), "atol": atol, "rtol": rtol,
-           "ok": bool(torch.all(diff <= atol + rtol * want.abs())),
+           "repeat_bitwise": repeat_bitwise,
+           "ok": repeat_bitwise and bool(
+               torch.all(diff <= atol + rtol * want.abs())),
            "ms": time_cuda(lambda: conv3x3(x, wt), reps),
+           "device_ms": kernel_device_ms(lambda: conv3x3(x, wt),
+                                         "conv3x3_"),
            "plain_ms": time_cuda(lambda: conv3x3_reference(x, wt), reps),
            # yardstick only: one cuDNN call on the same channels_last
            # operands; the port never calls it in B3's place
            "library_ms": time_cuda(lambda: conv2d(x, wt, padding=1), reps),
+           "library_device_ms": kernel_device_ms(
+               lambda: conv2d(x, wt, padding=1)),
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "gflop": flops / 1e9}
     row["tflops"] = flops / row["ms"] / 1e9
     print("[kernel] conv3x3 " + json.dumps(row), flush=True)
     return row
+
+
+def kernel_device_ms(fn, name: str = "", calls: int = 10) -> float:
+    """The device time per call of the kernels whose name holds ``name``
+    (every kernel by default), over ``calls`` calls of fn under
+    torch.profiler: the kernels' own time, without the host's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and name in e.key
+               ) / 1e3 / calls
 
 
 def conv_dx_case(name, b, h, w, c, dtype, seed=0):
@@ -1064,10 +1127,11 @@ def check_logits(out, n, where):
         check(bool(np.isfinite(out[k]).all()), f"{where}: {k} not finite")
 
 
-def profile_call(fn) -> dict:
+def profile_call(fn, match: str = None) -> dict:
     """One call of ``fn`` under torch.profiler: device time by kernel name
     and the device's busy share of the call's wall time (the profiler's own
-    host overhead is inside that wall time)."""
+    host overhead is inside that wall time); with ``match``, also the device
+    time and launches of the kernels whose name holds it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1083,10 +1147,15 @@ def profile_call(fn) -> dict:
                       if e.device_type == DeviceType.CUDA),
                      key=lambda r: -r[1])
     device_ms = sum(r[1] for r in kernels)
-    return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "busy_share": device_ms / wall_ms,
-            "top": [{"name": k[:90], "ms": ms, "count": c}
-                    for k, ms, c in kernels[:12]]}
+    out = {"wall_ms": wall_ms, "device_ms": device_ms,
+           "busy_share": device_ms / wall_ms,
+           "top": [{"name": k[:90], "ms": ms, "count": c}
+                   for k, ms, c in kernels[:12]]}
+    if match:
+        out.update(match=match,
+                   match_ms=sum(r[1] for r in kernels if match in r[0]),
+                   match_count=sum(r[2] for r in kernels if match in r[0]))
+    return out
 
 
 def phase_serving(work: Path):
@@ -1531,10 +1600,12 @@ def phase_av_serving(work: Path):
           f"{launches} B3 launches over {dispatches} AV dispatches")
     check(same_stats(stats0, running_stats(srv.model)),
           "a serving dispatch changed a BatchNorm running statistic")
-    profile = profile_call(lambda: srv(reqs[64]))
+    profile = profile_call(lambda: srv(reqs[64]), match="conv3x3_")
     print(f"[trace] AV n=64: wall {profile['wall_ms']:.2f} ms, device busy "
           f"{profile['device_ms']:.2f} ms ({100 * profile['busy_share']:.1f}"
-          f"%); top: " + json.dumps(profile["top"][:8]), flush=True)
+          f"%), B3 {profile['match_ms']:.2f} ms over "
+          f"{profile['match_count']} launches; top: "
+          + json.dumps(profile["top"][:8]), flush=True)
     two = {k: v[:2] for k, v in reqs[64].items()}
     gpu = srv(two)
     del srv
@@ -1678,11 +1749,13 @@ def phase_av_training():
           f"{peak / 2**30:.2f} GiB; losses {losses[0]['loss']:.4f} -> "
           f"{losses[-1]['loss']:.4f}; {launches} B3 launches; eval "
           f"{accuracy}; joint OGM_GE / QMF {other_losses}", flush=True)
-    profile = profile_call(lambda: step(state, batches[0], lr, 0))
+    profile = profile_call(lambda: step(state, batches[0], lr, 0),
+                           match="conv3x3_")
     print(f"[trace] AV MLA step B={b}: wall {profile['wall_ms']:.2f} ms, "
           f"device busy {profile['device_ms']:.2f} ms "
-          f"({100 * profile['busy_share']:.1f}%); top: "
-          + json.dumps(profile["top"][:10]), flush=True)
+          f"({100 * profile['busy_share']:.1f}%), B3 "
+          f"{profile['match_ms']:.2f} ms over {profile['match_count']} "
+          f"launches; top: " + json.dumps(profile["top"][:10]), flush=True)
     del state, model, step
     torch.cuda.empty_cache()
 
@@ -2206,7 +2279,7 @@ def main():
     from mla_tpu_torch.device import set_matmul_precision
     set_matmul_precision()      # fp32 plain versions in full fp32, no TF32
     t_start = time.perf_counter()
-    build_s, sass, q8_sass = phase_build()
+    build_s, sass, q8_sass, conv_sass = phase_build()
     rows, bwd_rows = phase_kernels()
     head_rows, head_bwd_rows = phase_head_kernels()
     ln_rows, ln_bwd_rows = phase_ln_kernels()
@@ -2275,8 +2348,12 @@ def main():
         # AV serving dispatches + AV training steps, eval, joint, QMF
         "launches": av_serving["launches"] + av_training["launches"],
         "max_abs_err": conv["max_abs_err"], "ms": conv["ms"],
+        "device_ms": conv["device_ms"],
         "plain_ms": conv["plain_ms"], "bound_ms": conv["bound_ms"],
         "bound_by": conv["bound_by"], "library_ms": conv["library_ms"],
+        "library_device_ms": conv["library_device_ms"],
+        "tflops": conv["tflops"],
+        "repeat_bitwise": all(r["repeat_bitwise"] for r in conv_rows),
         "max_abs_err_all": max(r["max_abs_err"] for r in conv_rows),
         "all_ok": all(r["ok"] for r in conv_rows + conv_dx_rows)})
     def q8_entry(name, replaces, rows_of, at, launches):
@@ -2377,6 +2454,7 @@ def main():
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
         "device": smi, "torch": torch.__version__, "build_s": build_s,
         "attention_build": sass, "q8_build": q8_sass,
+        "conv_build": conv_sass,
         "kernel_cases": rows, "bwd_kernel_cases": bwd_rows,
         "head_kernel_cases": head_rows, "head_bwd_kernel_cases": head_bwd_rows,
         "ln_kernel_cases": ln_rows, "ln_bwd_kernel_cases": ln_bwd_rows,

@@ -193,8 +193,10 @@ class AVClassifier(nn.Module):
 
 def resolve_pallas_conv(cfg: MLAConfig) -> bool:
     """Whether the ResNet's stride-1 3x3 convs take the B3 kernel. 'auto'
-    resolves to off, as in the JAX package, until the card's B3 and cuDNN
-    times are weighed in PERF.md (B3 is slower than cuDNN there so far)."""
+    resolves to off, as in the JAX package. On an H100 B3's device time is
+    at or under cuDNN's at most of the 8 CREMA-D sites and within 8% at the
+    rest, and the AV MLA step runs within the host's spread of the cuDNN
+    step (PERF.md section 6)."""
     return cfg.pallas_conv == "on"
 
 

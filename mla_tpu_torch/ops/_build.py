@@ -11,11 +11,13 @@ builds never share a file. ``-Xptxas -v`` is always on; its report
 (registers, shared memory, spills) is kept beside the library as ``.log``.
 
 Nothing here runs at import time: the CPU tests import every module on a
-machine with no ``nvcc``.
+machine with no ``nvcc``. ``stream`` and ``on_card`` are the wrappers'
+launch context.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -94,3 +96,20 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _libs[name] = lib
         return lib
+
+
+def stream(x) -> int:
+    """The raw handle of the current stream on x's card (what
+    ``torch.cuda.current_stream(dev).cuda_stream`` returns, without
+    building a Stream object on every launch)."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(x.device.index)
+
+
+def on_card(x):
+    """The context of a launch on x's card: nothing to do when it is the
+    current device (the models' case), else ``torch.cuda.device``."""
+    import torch
+    if x.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(x.device)

@@ -14,6 +14,16 @@ weight-gradient (the JAX package leaves dw to XLA's conv-grad, outside any
 Pallas kernel). On a CPU tensor both run the plain version. There is no
 fallback from one to the other.
 
+The kernel. bf16: an implicit GEMM on Hopper's wgmma (M = B*H*W pixels,
+N = F, K = 9*C, computed as W . X^T), fed by TMA: each k-stage is one tap
+and 64 channels, the pixel tile one im2col load that runs flat over B*H*W
+(TMA's out-of-bounds fill is the zero padding), the weight tile a tiled
+load of the K-major weight ``pack_weight`` makes; one producer thread, a
+ring of 4-6 shared-memory stages, two consumer warpgroups with fp32
+accumulators, one rounding to bf16 in a TMA-store epilogue. fp32: the FMA
+pipes. ``tests/test_torch_port_conv3x3_law.py`` writes the bf16 operand law
+in torch.
+
 Compute type. The TPU path of the JAX package rounds the operands to bf16
 even in a float32 model (``conv3x3_vjp``'s default ``compute_dtype``); off
 the TPU it computes exactly in float32. The port follows the latter: the
@@ -23,6 +33,7 @@ kernel computes in its input's type, bf16 or fp32.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -49,11 +60,17 @@ def eligible(x, w) -> bool:
             and w.shape[0] in CHANNELS)
 
 
-def pack_weight(w, dtype):
-    """(F, C, 3, 3) -> the (9*C, F) row-major matrix the kernel reads: the
-    HWIO weight flattened, row (ky*3 + kx)*C + c."""
-    f, c = w.shape[:2]
-    return w.permute(2, 3, 1, 0).reshape(9 * c, f).to(dtype).contiguous()
+def pack_weight(w, dtype, rotated: bool = False):
+    """(F, C, 3, 3) -> the K-major matrix the kernel reads (wgmma's A
+    operand): (F, 9*C), row f holding filter f's taps, column (ky*3 + kx)*C
+    + c. ``rotated``: the dx weight ``rot180_swap(w)`` without its rotation,
+    (C, 9*F) with row c, column (ky*3 + kx)*F + f holding w[f, c, ky, kx];
+    the kernel reads its taps in reverse. One copy, made per call on the
+    weight's device, since the weights change every step."""
+    src = w.permute(1, 2, 3, 0) if rotated else w.permute(0, 2, 3, 1)
+    out = torch.empty(src.shape, dtype=dtype, device=w.device)
+    out.copy_(src)
+    return out.view(src.shape[0], -1)
 
 
 def rot180_swap(w):
@@ -62,14 +79,15 @@ def rot180_swap(w):
     return w.flip(2, 3).transpose(0, 1)
 
 
-def conv3x3(x, w):
+def conv3x3(x, w, rotated: bool = False):
     """Launch the 3x3 conv kernel on CUDA tensors.
 
     x: (B, C, H, W) bf16 or fp32, ``channels_last``-contiguous, on the card;
     w: (C, C, 3, 3) on the same card (any float type; cast to x's). Returns
-    (B, C, H, W) ``channels_last`` in x's type. Raises on anything the kernel
-    does not take and when the launch is refused. ``conv3x3.launches``
-    counts the launches."""
+    (B, C, H, W) ``channels_last`` in x's type: the conv of x with w, or
+    with ``rot180_swap(w)`` when ``rotated`` (dx). Raises on anything the
+    kernel does not take and when the launch is refused.
+    ``conv3x3.launches`` counts the launches."""
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3 needs a CUDA tensor, got {x.device}")
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -85,17 +103,15 @@ def conv3x3(x, w):
         raise ValueError("x must be channels_last-contiguous and 16-byte "
                          "aligned")
     b, c, h, wd = x.shape
-    if not (b >= 1 and b * h * wd < 2 ** 31):
+    if not (b >= 1 and b * h * wd < 2 ** 31 - 256):     # int tile counts
         raise ValueError(f"{b}x{h}x{wd} pixels out of the kernel's range")
-    wp = pack_weight(w, x.dtype)
+    wp = pack_weight(w, x.dtype, rotated)
     out = torch.empty((b, c, h, wd), dtype=x.dtype, device=x.device,
                       memory_format=torch.channels_last)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.mla_conv3x3_fwd(x.data_ptr(), wp.data_ptr(), out.data_ptr(),
-                                 b, h, wd, c, c,
-                                 int(x.dtype == torch.bfloat16), stream)
+    with _build.on_card(x):
+        rc = _lib().mla_conv3x3_fwd(
+            x.data_ptr(), wp.data_ptr(), out.data_ptr(), b, h, wd, c, c,
+            int(rotated), int(x.dtype == torch.bfloat16), _build.stream(x))
     if rc != 0:
         raise RuntimeError(f"conv3x3 kernel launch failed: CUDA error {rc}")
     conv3x3.launches += 1
@@ -105,19 +121,22 @@ def conv3x3(x, w):
 conv3x3.launches = 0
 
 
+@functools.cache
 def _lib() -> ctypes.CDLL:
+    """The conv library, its argument types set once."""
     lib = _build.load("conv3x3")
     fn = lib.mla_conv3x3_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
 
-def _forward(x, w):
+def _forward(x, w, rotated=False):
     if x.device.type == "cpu":
-        return conv3x3_reference(x, w)
-    return conv3x3(x.contiguous(memory_format=torch.channels_last), w)
+        return conv3x3_reference(x, rot180_swap(w) if rotated else w)
+    return conv3x3(x.contiguous(memory_format=torch.channels_last), w,
+                   rotated)
 
 
 class Conv3x3(torch.autograd.Function):
@@ -136,7 +155,7 @@ class Conv3x3(torch.autograd.Function):
         x, w = ctx.saved_tensors
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = _forward(g, rot180_swap(w))
+            dx = _forward(g, w, rotated=True)
         if ctx.needs_input_grad[1]:
             dw = torch.ops.aten.convolution_backward(
                 g, x, w, None, (1, 1), (1, 1), (1, 1), False, (0, 0), 1,

@@ -46,7 +46,6 @@ the W8A8 calibration forward (``runtime/export.py:calibrate_a8``).
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 
@@ -248,21 +247,6 @@ def _layer_id(layer, x):
     return layer
 
 
-def _stream(x):
-    """The raw handle of the current stream on x's card (what
-    ``torch.cuda.current_stream(dev).cuda_stream`` returns, without
-    building a Stream object on every launch)."""
-    return torch._C._cuda_getCurrentRawStream(x.device.index)
-
-
-def _on_card(x):
-    """The context of a launch on x's card: nothing to do when it is the
-    current device (serving's case), else ``torch.cuda.device``."""
-    if x.device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(x.device)
-
-
 def _fp32(b):
     """A bias as the kernel reads it, fp32: itself when it already is, as
     the serving model's biases are (``_check_cuda`` has made sure it is
@@ -282,10 +266,10 @@ def quantize_rows_cuda(x2):
         raise ValueError(f"quantize_rows takes K % {K_MULT} == 0, got {k}")
     xq = torch.empty((m, k), dtype=torch.int8, device=x2.device)
     xs = torch.empty((m,), dtype=torch.float32, device=x2.device)
-    with _on_card(x2):
+    with _build.on_card(x2):
         rc = _gemm_lib().mla_q8_quantize_rows(
             x2.data_ptr(), xq.data_ptr(), xs.data_ptr(), m, k,
-            int(x2.dtype == torch.float32), _stream(x2))
+            int(x2.dtype == torch.float32), _build.stream(x2))
     if rc != 0:
         raise RuntimeError(f"quantize_rows kernel launch failed: CUDA error "
                            f"{rc}")
@@ -301,13 +285,13 @@ def _launch_gemm(x2, w, scale, layer, a8: bool):
         xa, xs = x2.to(torch.bfloat16).contiguous(), None
     out = torch.empty((m, w.shape[-2]), dtype=torch.bfloat16,
                       device=x2.device)
-    with _on_card(x2):
+    with _build.on_card(x2):
         rc = _gemm_lib().mla_q8_matmul(
             xa.data_ptr(), None if xs is None else xs.data_ptr(),
             w.data_ptr(), scale.data_ptr(),
             None if layer is None else layer.data_ptr(),
             w.shape[0] if w.dim() == 3 else 1, out.data_ptr(), m, k,
-            w.shape[-2], int(a8), _stream(x2))
+            w.shape[-2], int(a8), _build.stream(x2))
     if rc != 0:
         raise RuntimeError(f"q8 GEMM kernel launch failed: CUDA error {rc}")
     return out
@@ -387,14 +371,14 @@ def q8_mlp_stacked(x, w1, s1, b1, w2, s2, b2, layer, a8: bool = False):
         hidden = torch.empty((m, h), dtype=torch.bfloat16, device=x.device)
     out = torch.empty((m, c), dtype=torch.bfloat16, device=x.device)
     f1, f2 = _fp32(b1), _fp32(b2)
-    with _on_card(x):
+    with _build.on_card(x):
         rc = _mlp_lib().mla_q8_mlp(
             xa.data_ptr(), None if xs is None else xs.data_ptr(),
             w1.data_ptr(), s1.data_ptr(), f1.data_ptr(), w2.data_ptr(),
             s2.data_ptr(), f2.data_ptr(), layer.data_ptr(), w1.shape[0],
             hidden.data_ptr(), None if hq is None else hq.data_ptr(),
             None if hs is None else hs.data_ptr(),
-            out.data_ptr(), m, c, h, bh, int(a8), _stream(x))
+            out.data_ptr(), m, c, h, bh, int(a8), _build.stream(x))
     if rc != 0:
         raise RuntimeError(f"q8 MLP kernel launch failed: CUDA error {rc}")
     q8_mlp_stacked.launches += 1

@@ -291,6 +291,71 @@ def test_conv3x3_rejects_what_it_cannot_launch():
         conv3x3(x.half(), w)
 
 
+# the 8 stride-1 3x3 sites of the CREMA-D ResNet-18s at 64 clips
+# (chip_smoke.py CONV_SHAPES), as (B, C, H, W)
+CREMA_D_CONVS = [(192, 64, 56, 56), (192, 128, 28, 28), (192, 256, 14, 14),
+                 (192, 512, 7, 7), (64, 64, 33, 157), (64, 128, 17, 79),
+                 (64, 256, 9, 40), (64, 512, 5, 20)]
+# B*H*W off the kernel's 64-256-pixel tiles, with a tile spanning several
+# images (H*W < the tile), and 1x1 images at C = 512
+RAGGED_CONVS = [(5, 64, 3, 7), (7, 128, 5, 5), (3, 512, 1, 1),
+                (33, 256, 2, 2), (2, 512, 7, 7), (1, 64, 1, 1)]
+
+
+def _conv_close(torch, got, want, dtype_name):
+    atol, rtol = CONV_TOL[dtype_name]
+    diff = (got.float() - want.float()).abs()
+    assert bool(torch.all(diff <= atol + rtol * want.float().abs())), \
+        diff.max().item()
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,c,h,w", CREMA_D_CONVS + RAGGED_CONVS)
+def test_conv3x3_kernel_at_the_main_path_and_ragged_shapes(b, c, h, w,
+                                                           dtype_name):
+    """B3 at the CREMA-D sites and at pixel counts off its tiles, against
+    the plain version; a second call gives the same bits (no atomics, no
+    split sums)."""
+    torch = _cuda()
+    from mla_tpu_torch.device import set_matmul_precision
+    from mla_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_reference
+
+    set_matmul_precision()
+    x, wt = _conv_inputs(torch, b, c, h, w, getattr(torch, dtype_name),
+                         seed=b + c + h + w)
+    got = conv3x3(x, wt)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and bool(torch.isfinite(got).all())
+    _conv_close(torch, got, conv3x3_reference(x, wt), dtype_name)
+    assert torch.equal(got, conv3x3(x, wt))
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [64, 128, 256, 512])
+def test_conv3x3_dx_at_each_width(c, dtype_name):
+    """dx through Conv3x3 (the kernel on the rotated, channel-swapped
+    weight) against the plain version's autograd on the same inputs, at
+    each channel width; dw is PyTorch's weight-gradient on both sides."""
+    torch = _cuda()
+    from mla_tpu_torch.device import set_matmul_precision
+    from mla_tpu_torch.ops.conv3x3 import (Conv3x3, conv3x3,
+                                           conv3x3_reference)
+
+    set_matmul_precision()
+    dtype = getattr(torch, dtype_name)
+    x, wt = _conv_inputs(torch, 3, c, 9, 10, dtype, seed=c)
+    g = torch.from_numpy(np.random.default_rng(c + 1).standard_normal(
+        (3, c, 9, 10)).astype(np.float32)).to("cuda", dtype).contiguous(
+            memory_format=torch.channels_last)
+    x.requires_grad_()
+    before = conv3x3.launches
+    got = torch.autograd.grad(Conv3x3.apply(x, wt), x, g)[0]
+    torch.cuda.synchronize()
+    assert conv3x3.launches == before + 2          # forward and dx
+    want = torch.autograd.grad(conv3x3_reference(x, wt), x, g)[0]
+    _conv_close(torch, got, want, dtype_name)
+
+
 def _av_batch(torch, b, seed=0, t=2, side=32):
     rng = np.random.default_rng(seed)
     batch = {"spec": rng.standard_normal((b, 1, 33, 40)).astype(np.float32),
