@@ -14,9 +14,11 @@ result line:
               attention backward, int8 GEMM and 3x3 conv kernel function
               counted in cuobjdump -sass: every bf16 attention one
               (mma_fwd_*, mma_bwd_*) must have some, every int8 GEMM one
-              wgmma of its kind (HGMMA weight-only, IGMMA W8A8) and every
-              bf16 conv one (conv3x3_wgmma_kernel<...>) HGMMA and no HMMA,
-              printed with its ptxas registers and spills.
+              wgmma of its kind (HGMMA weight-only, IGMMA W8A8), every
+              bf16 conv one (conv3x3_wgmma_kernel<...>) and every bf16
+              ln_dense GEMM one (ln_dense_{fwd,dh,dw}_wgmma_kernel<...>)
+              HGMMA and no HMMA, printed with its ptxas registers and
+              spills (the fp32 FMA ones listed beside them).
 3. kernels  — each kernel against its plain PyTorch version on the card at
               the shapes the serving and training paths give it (and a few
               edge shapes), with the tolerance stated; kernel, plain and
@@ -119,7 +121,10 @@ row gives its TOPS. It holds the head-layout attention pair B2f/B2b at the
 training shape (B=64, S=257, H=12, D=64) in bf16 and fp32, at D=80, at S=9
 with a fully masked row and at S=1360 (B=2, H=12), and B7f/B7b at both
 block sites, at 257 and 16448 rows and at 1000 (off the kernels' tiles),
-in bf16 and fp32, B7b run twice for bitwise equality.
+in bf16 and fp32, each run twice for bitwise equality, with the kernels'
+device time alone (device_ms, torch.profiler) and the library pair's
+(F.layer_norm + F.linear, forward and autograd backward:
+library_device_ms), and B7b's dW row splits.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after. The second-to-last line is the kernels JSON; the last line is
@@ -270,7 +275,23 @@ def phase_build():
         for v in bf16.values()),
           f"a bf16 conv kernel function has no wgmma instruction (or an "
           f"mma.sync one): {conv}")
-    return secs, sass, q8, conv
+    lib = libs[KERNEL_SOURCES.index("ln_dense")]
+    counts = sass_mma_counts(lib, ln_function)
+    reports = ptxas_reports(lib.with_suffix(".log"), ln_function)
+    ln = {f: {**counts.get(f, {}), **reports.get(f, {})}
+          for f in sorted(set(counts) | set(reports))}
+    print("[build] ln_dense: wgmma (HGMMA) and mma.sync (HMMA) instructions "
+          "and the ptxas report per kernel function: " + json.dumps(ln),
+          flush=True)
+    # every bf16 GEMM (forward, dh, dW; one per x type and tile width) runs
+    # wgmma and no mma.sync; the fp32 FMA ones and the row passes have none
+    bf16 = {k: v for k, v in ln.items() if "_wgmma_" in k}
+    check(len(bf16) == LN_WGMMA_FUNCTIONS and all(
+        v.get("HGMMA", 0) > 0 and v.get("HMMA", 0) == 0
+        for v in bf16.values()),
+          f"a bf16 ln_dense GEMM kernel function has no wgmma instruction "
+          f"(or an mma.sync one): {ln}")
+    return secs, sass, q8, conv, ln
 
 
 def attention_function(mangled: str):
@@ -311,6 +332,22 @@ def conv_function(mangled: str):
     if m:
         return f"conv3x3_wgmma_kernel<{m[1]}, {m[2]}>"
     return "conv3x3_f32_kernel" if "conv3x3_f32_kernel" in mangled else None
+
+
+# csrc/ln_dense.cu's bf16 GEMMs: the forward <x bf16, 128 | 256>, dh <128 |
+# 256>, dW <x bf16>
+LN_WGMMA_FUNCTIONS = 4 + 2 + 2
+
+
+def ln_function(mangled: str):
+    """'ln_dense_fwd_wgmma_kernel<1, 256>' or 'ln_dense_reduce_kernel' for
+    an ln_dense kernel function's mangled name, else None."""
+    import re
+    m = re.search(r"(ln_dense_[a-z_]+_kernel)(I(?:L[bi]\d+E)+E)?", mangled)
+    if m is None:
+        return None
+    args = re.findall(r"L[bi](\d+)E", m[2] or "")
+    return f"{m[1]}<{', '.join(args)}>" if args else m[1]
 
 
 def sass_mma_counts(lib: Path, name_of) -> dict:
@@ -720,6 +757,34 @@ def kernel_device_ms(fn, name: str = "", calls: int = 10) -> float:
                ) / 1e3 / calls
 
 
+def kernel_device_breakdown(fn, name: str, calls: int = 10) -> dict:
+    """kernel_device_ms of each kernel whose name holds ``name``, by the
+    kernel's function name: where a multi-kernel call spends its time."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {re.sub(r"^.*::|\(.*$", "", e.key): e.self_device_time_total
+            / 1e3 / calls for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and name in e.key}
+
+
+def digest(tensors) -> str:
+    """sha256 of the tensors' bytes: equal bits across two checkouts."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
+
+
 def conv_dx_case(name, b, h, w, c, dtype, seed=0):
     """dx (B3 on the rotated weight) and dw (PyTorch's weight-gradient)
     through Conv3x3 against the plain version's autograd, same inputs."""
@@ -1014,22 +1079,32 @@ def ln_dense_case(site, n, dtype, seed=0, reps=20):
                                                ln_dense_reference)
     c, f = LN_SITES[site]
     x, sc, bi, w, db, _ = ln_inputs(n, c, f, dtype, seed)
-    got = ln_dense_fwd(x, sc, bi, w, db, 1e-5, dtype)
+    kernel = lambda: ln_dense_fwd(x, sc, bi, w, db, 1e-5, dtype)  # noqa: E731
+    got = kernel()
     torch.cuda.synchronize()
+    # no atomics, no split sums: a second call gives the same bits
+    same = bool(torch.equal(got, kernel()))
     want = ln_dense_reference(x, sc, bi, w, db, 1e-5, dtype)
     es = x.element_size()
     wc, sc_c, bi_c, db_c = (t.to(dtype) for t in (w, sc, bi, db))
+    library = lambda: F.linear(F.layer_norm(  # noqa: E731
+        x, (c,), sc_c, bi_c), wc, db_c)
     err, ok = ulp_err(got, want, *LN_TOL[dtype]["y"])
     row = {"site": site, "rows": n, "c": c, "f": f,
            "dtype": str(dtype).replace("torch.", ""),
-           "max_abs_err": err, "tol": LN_TOL[dtype]["y"], "ok": ok,
-           "ms": time_cuda(lambda: ln_dense_fwd(x, sc, bi, w, db, 1e-5,
-                                                dtype), reps),
+           "max_abs_err": err, "tol": LN_TOL[dtype]["y"],
+           "repeat_bitwise": same, "ok": ok and same,
+           "digest": digest([got]),
+           "ms": time_cuda(kernel, reps),
+           # the statistics pass and the GEMM (bf16) or the FMA kernel
+           # alone, without the weight's cast and the host
+           "device_ms": kernel_device_ms(kernel, "ln_dense_"),
+           "device_kernels": kernel_device_breakdown(kernel, "ln_dense_"),
            "plain_ms": time_cuda(lambda: ln_dense_reference(
                x, sc, bi, w, db, 1e-5, dtype), max(reps // 4, 3)),
            # yardstick only, never called by the port
-           "library_ms": time_cuda(lambda: F.linear(F.layer_norm(
-               x, (c,), sc_c, bi_c), wc, db_c), reps),
+           "library_ms": time_cuda(library, reps),
+           "library_device_ms": kernel_device_ms(library),
            # x, the LN and Dense parameters read once, the output written
            **bound(n * c * es + 8 * c + f * c * es + 4 * f + n * f * es,
                    2 * n * c * f, PEAK_FLOPS[dtype])}
@@ -1046,10 +1121,12 @@ def ln_dense_bwd_case(site, n, dtype, seed=0, reps=10):
     from mla_tpu_torch.ops.fused_block import (ln_dense_bwd,
                                                ln_dense_bwd_reference,
                                                ln_dense_fwd)
+    from mla_tpu_torch.ops import fused_block as fbk
     c, f = LN_SITES[site]
     x, sc, bi, w, db, dy = ln_inputs(n, c, f, dtype, seed)
-    got = ln_dense_bwd(x, sc, bi, w, dy, 1e-5, dtype)
-    again = ln_dense_bwd(x, sc, bi, w, dy, 1e-5, dtype)
+    kernel = lambda: ln_dense_bwd(x, sc, bi, w, dy, 1e-5, dtype)  # noqa: E731
+    got = kernel()
+    again = kernel()
     torch.cuda.synchronize()
     want = ln_dense_bwd_reference(x, sc, bi, w, dy, 1e-5, dtype)
     names = ("dx", "ds", "db", "dw", "dc")
@@ -1062,20 +1139,30 @@ def ln_dense_bwd_case(site, n, dtype, seed=0, reps=10):
               for t in (x, sc, bi, w, db)]
     out = F.linear(F.layer_norm(leaves[0], (c,), leaves[1], leaves[2]),
                    leaves[3], leaves[4])
+    library = lambda: torch.autograd.grad(  # noqa: E731
+        out, leaves, dy, retain_graph=True)
     es = x.element_size()
     row = {"site": site, "rows": n, "c": c, "f": f,
            "dtype": str(dtype).replace("torch.", ""),
+           # dW's row splits on this card (a checkout without them: None)
+           "splits": fbk.ln_dense_bwd_splits(n, c, f, dtype)
+           if hasattr(fbk, "ln_dense_bwd_splits") else None,
            "max_abs_err": max(errs.values()), "errs": errs, "oks": oks,
-           "deterministic": same, "ok": all(oks.values()) and same,
-           "ms": time_cuda(lambda: ln_dense_bwd(x, sc, bi, w, dy, 1e-5,
-                                                dtype), reps),
+           "deterministic": same, "repeat_bitwise": same,
+           "ok": all(oks.values()) and same,
+           "digest": digest(got),
+           "ms": time_cuda(kernel, reps),
+           # the four or five kernels alone, without the weight's cast,
+           # the scratch allocations and the host
+           "device_ms": kernel_device_ms(kernel, "ln_dense_"),
+           "device_kernels": kernel_device_breakdown(kernel, "ln_dense_"),
            "plain_ms": time_cuda(lambda: ln_dense_bwd_reference(
                x, sc, bi, w, dy, 1e-5, dtype), 3),
            "fwd_ms": time_cuda(lambda: ln_dense_fwd(x, sc, bi, w, db, 1e-5,
                                                     dtype), reps),
            # yardstick only: the library pair's autograd backward alone
-           "library_ms": time_cuda(lambda: torch.autograd.grad(
-               out, leaves, dy, retain_graph=True), reps),
+           "library_ms": time_cuda(library, reps),
+           "library_device_ms": kernel_device_ms(library),
            # x, the parameters, W and dy read once; dx, dscale, dbias, dW
            # (fp32) and dc written once; two GEMMs (dh and dW)
            **bound(2 * n * c * es + 8 * c + f * c * es + n * f * es
@@ -2279,7 +2366,7 @@ def main():
     from mla_tpu_torch.device import set_matmul_precision
     set_matmul_precision()      # fp32 plain versions in full fp32, no TF32
     t_start = time.perf_counter()
-    build_s, sass, q8_sass, conv_sass = phase_build()
+    build_s, sass, q8_sass, conv_sass, ln_sass = phase_build()
     rows, bwd_rows = phase_kernels()
     head_rows, head_bwd_rows = phase_head_kernels()
     ln_rows, ln_bwd_rows = phase_ln_kernels()
@@ -2437,16 +2524,22 @@ def main():
          "replaces": "mla_tpu/ops/fused_block.py:116",
          "launches": ln_path["launches_fwd"],
          "max_abs_err": lf["max_abs_err"], "ms": lf["ms"],
+         "device_ms": lf["device_ms"],
          "plain_ms": lf["plain_ms"], "bound_ms": lf["bound_ms"],
          "bound_by": lf["bound_by"], "library_ms": lf["library_ms"],
+         "library_device_ms": lf["library_device_ms"],
+         "repeat_bitwise": all(r["repeat_bitwise"] for r in ln_rows),
          "max_abs_err_all": max(r["max_abs_err"] for r in ln_rows),
          "all_ok": all(r["ok"] for r in ln_rows)},
         {"name": "ln_dense_bwd", **ln_common,
          "replaces": "mla_tpu/ops/fused_block.py:124",
          "launches": ln_path["launches_bwd"],
          "max_abs_err": lb["max_abs_err"], "ms": lb["ms"],
+         "device_ms": lb["device_ms"],
          "plain_ms": lb["plain_ms"], "bound_ms": lb["bound_ms"],
          "bound_by": lb["bound_by"], "library_ms": lb["library_ms"],
+         "library_device_ms": lb["library_device_ms"],
+         "repeat_bitwise": all(r["repeat_bitwise"] for r in ln_bwd_rows),
          "fwd_plus_bwd_ms": lb["fwd_plus_bwd_ms"],
          "max_abs_err_all": max(r["max_abs_err"] for r in ln_bwd_rows),
          "all_ok": all(r["ok"] for r in ln_bwd_rows)}]
@@ -2454,7 +2547,7 @@ def main():
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
         "device": smi, "torch": torch.__version__, "build_s": build_s,
         "attention_build": sass, "q8_build": q8_sass,
-        "conv_build": conv_sass,
+        "conv_build": conv_sass, "ln_build": ln_sass,
         "kernel_cases": rows, "bwd_kernel_cases": bwd_rows,
         "head_kernel_cases": head_rows, "head_bwd_kernel_cases": head_bwd_rows,
         "ln_kernel_cases": ln_rows, "ln_bwd_kernel_cases": ln_bwd_rows,

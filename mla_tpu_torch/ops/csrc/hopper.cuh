@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels: the
-// int8 GEMMs (q8_gemm.cuh, behind q8_matmul.cu and q8_mlp.cu) and the 3x3
-// conv (conv3x3.cu). Shared-memory barriers (mbarrier), TMA loads (tiled and
-// im2col) and stores, the 128-byte-swizzled wgmma operand descriptor, wgmma
-// wrappers (bf16 with A from registers or shared memory, s8.s8 from shared
-// memory), stmatrix, and the driver's tensor-map encoders looked up through
-// the CUDA runtime (no -lcuda).
+// int8 GEMMs (q8_gemm.cuh, behind q8_matmul.cu and q8_mlp.cu), the 3x3
+// conv (conv3x3.cu) and the fused LayerNorm -> Dense (ln_dense.cu).
+// Shared-memory barriers (mbarrier), TMA loads (tiled and im2col) and
+// stores, the 128-byte-swizzled wgmma operand descriptors (K-major and
+// MN-major), ldmatrix, wgmma wrappers (bf16 with A from registers or shared
+// memory, B K-major or MN-major; s8.s8 from shared memory), stmatrix, and
+// the driver's tensor-map encoders looked up through the CUDA runtime (no
+// -lcuda).
 #pragma once
 
 #include <cuda.h>
@@ -129,6 +131,31 @@ __device__ __forceinline__ void stmatrix_x4_trans(void* p, uint32_t r0,
       : "memory");
 }
 
+// the same four matrices stored as they are: lane 8q + r gives the address
+// of row r of matrix q, which receives that row (the accumulator layout of
+// a row-major tile)
+__device__ __forceinline__ void stmatrix_x4(void* p, uint32_t r0, uint32_t r1,
+                                            uint32_t r2, uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::
+          "r"(smem_u32(p)),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
+}
+
+// four 8x8 bf16 matrices from shared memory, each delivered transposed:
+// lane 8q + r gives the address of row r of matrix q; register q of a
+// thread holds rows 2 (lane % 4) and 2 (lane % 4) + 1 of column lane / 4
+// (the lower row in the low half)
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -169,6 +196,18 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
          (1ull << 16) | (64ull << 32) | (1ull << 62);
 }
 
+// An MN-major bf16 wgmma operand in shared memory (used with the transpose
+// flag): TMA boxes of 8-row groups of 128-byte rows, each row 64 values of
+// M (or N) at one k, written with the 128-byte swizzle; 8-k groups 1024
+// bytes apart (SBO), boxes of 64 M (N) values `lbo` bytes apart (LBO); +128
+// advances it by 16 k (2048 bytes).
+__device__ __forceinline__ uint64_t desc_sw128_mn(const void* p,
+                                                  uint32_t lbo) {
+  return ((static_cast<uint64_t>(smem_u32(p)) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
@@ -176,8 +215,9 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 
 // wgmma wrappers: D (64 x N) += A (64 x k) . B^T (B: N x k, K-major in
 // shared memory). bf16_rs: k16, A bf16 in registers, fp32 D; bf16_ss (N =
-// 128, 256): k16, A bf16 in shared memory, fp32 D; s8_ss: k32, A int8 in
-// shared memory, int32 D.
+// 128, 256): k16, A bf16 in shared memory, fp32 D; with TB = 1 (bf16_ss,
+// and bf16_rs of N = 256) B is read MN-major (desc_sw128_mn); s8_ss: k32, A
+// int8 in shared memory, int32 D.
 #define WG_D8(c, d, i)                                                    \
   c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3]), c(d[i + 4]), c(d[i + 5]), \
       c(d[i + 6]), c(d[i + 7])
@@ -226,6 +266,7 @@ struct Wgmma<64> {
 
 template <>
 struct Wgmma<128> {
+  template <int TB = 0>
   static __device__ __forceinline__ void bf16_ss(float* d, uint64_t a,
                                                 uint64_t b) {
     asm volatile(
@@ -239,9 +280,9 @@ struct Wgmma<128> {
         "%40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, "
         "%56, %57, %58, %59, %60, %61, %62, %63}"
-        ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+        ", %64, %65, p, 1, 1, 0, %66;\n}\n"
         : WG_D64("+f", d)
-        : "l"(a), "l"(b));
+        : "l"(a), "l"(b), "n"(TB));
   }
   static __device__ __forceinline__ void bf16_rs(float* d, const uint32_t* a,
                                                 uint64_t b) {
@@ -281,6 +322,7 @@ struct Wgmma<128> {
 
 template <>
 struct Wgmma<256> {
+  template <int TB = 0>
   static __device__ __forceinline__ void bf16_ss(float* d, uint64_t a,
                                                 uint64_t b) {
     asm volatile(
@@ -302,10 +344,11 @@ struct Wgmma<256> {
         "%104, %105, %106, %107, %108, %109, %110, %111, "
         "%112, %113, %114, %115, %116, %117, %118, %119, "
         "%120, %121, %122, %123, %124, %125, %126, %127}"
-        ", %128, %129, p, 1, 1, 0, 0;\n}\n"
+        ", %128, %129, p, 1, 1, 0, %130;\n}\n"
         : WG_D128("+f", d)
-        : "l"(a), "l"(b));
+        : "l"(a), "l"(b), "n"(TB));
   }
+  template <int TB = 0>
   static __device__ __forceinline__ void bf16_rs(float* d, const uint32_t* a,
                                                 uint64_t b) {
     asm volatile(
@@ -327,9 +370,9 @@ struct Wgmma<256> {
         "%104, %105, %106, %107, %108, %109, %110, %111, "
         "%112, %113, %114, %115, %116, %117, %118, %119, "
         "%120, %121, %122, %123, %124, %125, %126, %127}"
-        ", {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+        ", {%128, %129, %130, %131}, %132, p, 1, 1, %133;\n}\n"
         : WG_D128("+f", d)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(TB));
   }
   static __device__ __forceinline__ void s8_ss(int* d, uint64_t a,
                                               uint64_t b) {

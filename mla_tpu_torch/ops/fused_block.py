@@ -32,7 +32,10 @@ import torch
 
 from mla_tpu_torch.ops import _build
 
-MAX_C = 1536     # the backward's row pass keeps 4 x 2 x C fp32 sums on chip
+# The backward's row pass keeps 4 x 2 x C fp32 column sums in shared
+# memory, 48 KB at C = 1536, the most a block gets without opting in; the
+# wgmma GEMMs tile C and take any multiple of 32.
+MAX_C = 1536
 
 
 def ln_reference(x, scale, bias, eps: float = 1e-5, dtype=None):
@@ -140,14 +143,17 @@ def ln_dense_fwd(x2, scale, bias, weight, dbias, eps: float = 1e-5,
     w = weight.to(dtype).contiguous()
     s, b, d = _f32(scale), _f32(bias), _f32(dbias)
     out = torch.empty((n, f), dtype=dtype, device=x2.device)
+    bf16 = dtype == torch.bfloat16
+    # scratch (bf16 compute): each row's mean and rstd, computed once
+    stats = torch.empty(2 * n if bf16 else 0, dtype=torch.float32,
+                        device=x2.device)
     lib = _lib()
-    with torch.cuda.device(x2.device):
-        stream = torch.cuda.current_stream(x2.device).cuda_stream
+    with _build.on_card(x2):
         rc = lib.mla_ln_dense_fwd(
             x2.data_ptr(), s.data_ptr(), b.data_ptr(), w.data_ptr(),
-            d.data_ptr(), out.data_ptr(), n, c, f,
-            int(x2.dtype == torch.bfloat16), int(dtype == torch.bfloat16),
-            float(eps), stream)
+            d.data_ptr(), out.data_ptr(), stats.data_ptr(), n, c, f,
+            int(x2.dtype == torch.bfloat16), int(bf16), float(eps),
+            _build.stream(x2))
     if rc != 0:
         raise RuntimeError(f"ln_dense kernel launch failed: CUDA error {rc}")
     ln_dense_fwd.launches += 1
@@ -162,9 +168,10 @@ def ln_dense_bwd(x2, scale, bias, weight, dy, eps: float = 1e-5,
     """Launch B7b on CUDA tensors: the forward's operands and dy (N, F) in
     the compute type -> dx (N, C) in x2's type and, in fp32, dscale, dbias
     (C,), dW (F, C), dc (F,). Four kernels on the stream (dh GEMM, row pass,
-    dW GEMM, column sums; ``csrc/ln_dense.cu`` says why), no atomics.
-    Raises on anything the kernels do not take, and when a launch is
-    refused. ``ln_dense_bwd.launches`` counts its calls."""
+    dW GEMM, column sums; under bf16 compute a fifth sums dW's and dc's
+    split partials; ``csrc/ln_dense.cu`` says why), no atomics. Raises on
+    anything the kernels do not take, and when a launch is refused.
+    ``ln_dense_bwd.launches`` counts its calls."""
     n, c, f, dtype = _check(x2, scale, bias, weight, dtype, "ln_dense_bwd")
     if tuple(dy.shape) != (n, f) or dy.dtype != dtype or \
             dy.device != x2.device:
@@ -180,19 +187,25 @@ def ln_dense_bwd(x2, scale, bias, weight, dy, eps: float = 1e-5,
               for _ in range(2))
     dw = torch.empty((f, c), dtype=torch.float32, device=dev)
     dc = torch.empty(f, dtype=torch.float32, device=dev)
-    # scratch: dh, the rows' statistics, the row pass's per-block sums
-    dh = torch.empty((n, c), dtype=torch.float32, device=dev)
-    stats = torch.empty(2 * n, dtype=torch.float32, device=dev)
-    part = torch.empty(2 * c * -(-n // 32), dtype=torch.float32, device=dev)
+    bf16 = int(dtype == torch.bfloat16)
     lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with _build.on_card(x2):
+        # scratch: dh, the rows' statistics, the row pass's sums per block
+        # of 32 rows, and dW's split partials, sized by the kernels for
+        # this card (bf16 compute)
+        splits, floats = _dw_scratch(lib, n, c, f, bf16)
+        dh = torch.empty((n, c), dtype=torch.float32, device=dev)
+        stats = torch.empty(2 * n, dtype=torch.float32, device=dev)
+        part = torch.empty(2 * c * -(-n // 32), dtype=torch.float32,
+                           device=dev)
+        wpart = torch.empty(floats, dtype=torch.float32, device=dev)
         rc = lib.mla_ln_dense_bwd(
             x2.data_ptr(), s.data_ptr(), b.data_ptr(), w.data_ptr(),
             dy.data_ptr(), dx.data_ptr(), ds.data_ptr(), db.data_ptr(),
             dw.data_ptr(), dc.data_ptr(), dh.data_ptr(), stats.data_ptr(),
-            part.data_ptr(), n, c, f, int(x2.dtype == torch.bfloat16),
-            int(dtype == torch.bfloat16), float(eps), stream)
+            part.data_ptr(), wpart.data_ptr(), splits, n, c, f,
+            int(x2.dtype == torch.bfloat16), bf16, float(eps),
+            _build.stream(x2))
     if rc != 0:
         raise RuntimeError(f"ln_dense backward kernel launch failed: CUDA "
                            f"error {rc}")
@@ -203,14 +216,31 @@ def ln_dense_bwd(x2, scale, bias, weight, dy, eps: float = 1e-5,
 ln_dense_bwd.launches = 0
 
 
+def _dw_scratch(lib, n: int, c: int, f: int, bf16: int):
+    """(row splits, fp32 values of their partials) of B7b's dW GEMM on the
+    current card, as ``csrc/ln_dense.cu`` chooses them."""
+    splits = ctypes.c_int(0)
+    floats = lib.mla_ln_dense_bwd_scratch(n, c, f, bf16, ctypes.byref(splits))
+    return splits.value, floats
+
+
+def ln_dense_bwd_splits(n: int, c: int, f: int, dtype) -> int:
+    """The row splits B7b's dW GEMM takes at (N, C, F) in ``dtype`` on the
+    current card (1 under fp32 compute)."""
+    return _dw_scratch(_lib(), n, c, f, int(dtype == torch.bfloat16))[0]
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ln_dense")
     fwd = lib.mla_ln_dense_fwd
-    fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+    fwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p]
     fwd.restype = ctypes.c_int
+    scratch = lib.mla_ln_dense_bwd_scratch
+    scratch.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    scratch.restype = ctypes.c_longlong
     bwd = lib.mla_ln_dense_bwd
-    bwd.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [
+    bwd.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_void_p]
     bwd.restype = ctypes.c_int
     return lib

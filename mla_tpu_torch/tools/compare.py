@@ -2,15 +2,18 @@
 on the ``mla_tpu_torch`` of another checkout and of this one, in four
 processes: parent, change, change, parent.
 
-    python3 mla_tpu_torch/tools/compare.py q8|conv PARENT_DIR
+    python3 mla_tpu_torch/tools/compare.py q8|conv|ln PARENT_DIR
 
 Groups: ``q8``, the int8 kernel rows (phase 3) and int8 serving (phase 8);
 ``conv``, the 3x3 conv rows (phase 3), AV serving (phase 6) and AV training
-(phase 7). PARENT_DIR is another checkout's root, e.g. ``git archive`` of
-the parent commit unpacked into ``build/parent`` (gitignored). Each process
-imports its side's ``mla_tpu_torch``, which builds its kernels from its own
-sources into its own build directory, and measures them with this
-checkout's ``chip_smoke.py``, so both sides are timed by the same code.
+(phase 7); ``ln``, the fused LayerNorm -> Dense rows B7f / B7b (phase 3,
+with whether each row's outputs keep their bits across the four runs) and
+the op through autograd (phase 10). PARENT_DIR is another checkout's root,
+e.g. ``git archive`` of the parent commit unpacked into ``build/parent``
+(gitignored). Each process imports its side's ``mla_tpu_torch``, which
+builds its kernels from its own sources into its own build directory, and
+measures them with this checkout's ``chip_smoke.py``, so both sides are
+timed by the same code.
 Each side's results go to ``chiprun_out/<group>_<label>.json``; the rows of
 all four runs go to ``chiprun_out/<group>_compare.json`` and are printed.
 """
@@ -53,6 +56,10 @@ def side(group: str, label: str, package: str):
             gemm, mlp = cs.phase_q8_kernels()
             res = {"q8_kernel_cases": gemm, "q8_mlp_cases": mlp,
                    "int8_serving": cs.phase_int8_serving(work)}
+        elif group == "ln":
+            rows, bwd_rows = cs.phase_ln_kernels()
+            res = {"ln_kernel_cases": rows, "ln_bwd_kernel_cases": bwd_rows,
+                   "ln_dense_path": cs.phase_ln_dense()}
         else:
             rows, dx_rows = cs.phase_conv_kernels()
             res = {"conv_kernel_cases": rows, "conv_dx_cases": dx_rows,
@@ -116,6 +123,33 @@ def conv_summary(res):
     return {"kernels": kernels, "av": av}
 
 
+def ln_summary(res):
+    """The B7f / B7b rows and phase 10's forward + backward of each run, and
+    whether each row's outputs have the same bits in all four runs."""
+    kernels, path, same_bits = {}, {}, {}
+    for label, r_ in res.items():
+        for name, rows in (("B7f", r_["ln_kernel_cases"]),
+                           ("B7b", r_["ln_bwd_kernel_cases"])):
+            for r in rows:
+                key = f"{name} {r['site']} {r['rows']} {r['dtype']}"
+                kernels.setdefault(key, {})[label] = {
+                    f: r.get(f) for f in ("ms", "device_ms", "library_ms",
+                                          "library_device_ms", "splits",
+                                          "max_abs_err", "repeat_bitwise",
+                                          "device_kernels")}
+                same_bits.setdefault(key, set()).add(r.get("digest"))
+        for site, v in r_["ln_dense_path"]["sites"].items():
+            path.setdefault(site, {})[label] = {
+                f: v[f] for f in ("on_fwd_bwd_ms", "off_fwd_bwd_ms",
+                                  "y_max_abs_err", "grad_rel_l2")}
+    return {"kernels": kernels, "path": path,
+            "same_bits": {k: len(v) == 1 and None not in v
+                          for k, v in same_bits.items()}}
+
+
+SUMMARIES = {"q8": q8_summary, "conv": conv_summary, "ln": ln_summary}
+
+
 def compare(group: str, parent: str):
     runs = [("parent_1", parent), ("change_1", str(ROOT)),
             ("change_2", str(ROOT)), ("parent_2", parent)]
@@ -127,7 +161,7 @@ def compare(group: str, parent: str):
             sys.exit(f"the {group} run {label} failed (exit {rc})")
     res = {label: json.loads((OUT_DIR / f"{group}_{label}.json").read_text())
            for label, _ in runs}
-    summary = (q8_summary if group == "q8" else conv_summary)(res)
+    summary = SUMMARIES[group](res)
     print(f"[{group} compare] {res['change_1']['device']}; runs "
           + ", ".join(label for label, _ in runs))
     for part in summary.values():
@@ -140,7 +174,7 @@ def compare(group: str, parent: str):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--side"]:
         side(*sys.argv[2:5])
-    elif len(sys.argv) == 3 and sys.argv[1] in ("q8", "conv"):
+    elif len(sys.argv) == 3 and sys.argv[1] in SUMMARIES:
         compare(sys.argv[1], sys.argv[2])
     else:
         sys.exit(__doc__)

@@ -1043,3 +1043,66 @@ def test_ln_dense_wrappers_reject_what_they_cannot_launch():
         ln_dense_bwd(x, s, b, w, dy.float())
     with pytest.raises(TypeError, match="bf16 or fp32"):
         ln_dense_fwd(x.half(), s, b, w, db)
+
+
+# The bf16 wgmma kernels of B7f/B7b at the edges of their tiling: C % 64 ==
+# 32 (TMA's zero fill past C), C = MAX_C, N = 1, F off the 128/256 tiles,
+# and both M3AE block sites at 16448 rows (dW's row splits); the same
+# LN_TOL, and a second call bit for bit the first (no atomics).
+@pytest.mark.parametrize("n,c,f", [(40, 96, 160), (37, 96, 96),
+                                   (1, 768, 2304), (1, 96, 64),
+                                   (300, 1536, 2304), (16448, 768, 2304),
+                                   (16448, 768, 3072)])
+def test_ln_dense_bf16_kernels_at_tile_edges_and_sites(n, c, f):
+    torch = _cuda()
+    from mla_tpu_torch.ops.fused_block import (ln_dense_bwd,
+                                               ln_dense_bwd_reference,
+                                               ln_dense_fwd,
+                                               ln_dense_reference)
+
+    bf = torch.bfloat16
+    x, s, b, w, db, dy = _ln(torch, n, c, f, bf, seed=n + c)
+    y = ln_dense_fwd(x, s, b, w, db, 1e-5, bf)
+    y2 = ln_dense_fwd(x, s, b, w, db, 1e-5, bf)
+    got = ln_dense_bwd(x, s, b, w, dy, 1e-5, bf)
+    again = ln_dense_bwd(x, s, b, w, dy, 1e-5, bf)
+    torch.cuda.synchronize()
+    assert y.shape == (n, f) and y.dtype == bf and torch.equal(y, y2)
+    tol = LN_TOL["bfloat16"]
+    _within(torch, y, ln_dense_reference(x, s, b, w, db, 1e-5, bf), tol["y"],
+            "y")
+    want = ln_dense_bwd_reference(x, s, b, w, dy, 1e-5, bf)
+    for name, g, wt, g2 in zip(("dx", "ds", "db", "dw", "dc"), got, want,
+                               again):
+        assert g.dtype == wt.dtype and g.shape == wt.shape, name
+        _within(torch, g, wt, tol[name], name)
+        assert torch.equal(g, g2), name
+
+
+@pytest.mark.parametrize("f", [2304, 3072])
+def test_ln_dense_fp32_input_bf16_compute_at_the_sites(f):
+    """fp32 x under bf16 compute (the wgmma kernels read the raw fp32 tile)
+    at the M3AE block's two sites, 16448 rows."""
+    torch = _cuda()
+    from mla_tpu_torch.device import set_matmul_precision
+    from mla_tpu_torch.ops.fused_block import (ln_dense_bwd,
+                                               ln_dense_bwd_reference,
+                                               ln_dense_fwd,
+                                               ln_dense_reference)
+
+    set_matmul_precision()
+    bf = torch.bfloat16
+    x, s, b, w, db, dy = _ln(torch, 16448, 768, f, torch.float32, seed=f)
+    dy = dy.to(bf)
+    y = ln_dense_fwd(x, s, b, w, db, 1e-5, bf)
+    assert y.dtype == bf
+    _within(torch, y, ln_dense_reference(x, s, b, w, db, 1e-5, bf),
+            LN_TOL["bfloat16"]["y"], "y")
+    got = ln_dense_bwd(x, s, b, w, dy, 1e-5, bf)
+    again = ln_dense_bwd(x, s, b, w, dy, 1e-5, bf)
+    want = ln_dense_bwd_reference(x, s, b, w, dy, 1e-5, bf)
+    assert got[0].dtype == torch.float32
+    for name, g, wt, g2 in zip(("dx", "ds", "db", "dw", "dc"), got, want,
+                               again):
+        _within(torch, g, wt, LN_TOL["bfloat16"][name], name)
+        assert torch.equal(g, g2), name
