@@ -105,6 +105,28 @@ result line:
               one B7f launch a forward and one B7b call a backward; switch
               off, no launch and the LayerNorm and Dense composition's
               result.
+11. driver  — CREMA-D trained end to end through the port's CLI
+              (cli.parse_args, then driver.run on the card) from files on
+              disk: synthetic.make_cremad writes 192 + 64 seeded clips (4
+              JPEG frames at CREMA-D's 360x480 video size, a (129, 626)
+              spectrogram each), and the adapter (cv2 over the loader's 8
+              workers, or the C++ decoder where it builds),
+              the loader (pinned host batches, non_blocking copies) and the
+              on-device frame transform feed the steps. --gs_flag, B=64,
+              bf16 compute, 224x224 crops of 256x256 frames: 2 epochs with
+              --pallas_conv on and --save_last, B3 launched 52 times a step
+              and 26 an eval batch (364 in all); eval-only from the best
+              checkpoint (its accuracy within one test clip); --resume from
+              `last` for a third epoch; the same 2 epochs on the default
+              route (--pallas_conv auto: cuDNN, no B3); the B3 run again
+              under torch.profiler, epoch 1 split by the driver's spans
+              (train loop, steps, transform, the wait for the loader,
+              evaluate; device busy share of the train loop). Then the
+              loader alone over an epoch (clips/s), the transform's time
+              per batch
+              (CUDA events and device time) and the transform on the card
+              against the CPU at the full batch (64 x 3 frames, float32,
+              max abs <= 5e-5), and whether the C++ decoder was built.
 
 Phase 3 also holds the int8 kernels against their plain versions: B4 and
 B5 (weight-only and W8A8) at the four block sites of the base width (qkv
@@ -2354,6 +2376,294 @@ def phase_ln_dense():
 
 # ---------------------------------------------------------------- main
 
+# ---------------------------------------------------------------- phase 11
+
+DRIVER_TRAIN, DRIVER_TEST = 192, 64   # 3 MLA steps + 1 eval batch an epoch
+DRIVER_EPOCHS = 2
+DRIVER_SPEC = (129, 626)              # the CREMA-D log-spectrogram
+DRIVER_FRAME_HW = (360, 480)          # CREMA-D's video size (480 x 360)
+DRIVER_WORKERS = 8                    # the CLI's default --num_workers
+TRANSFORM_TOL = 5e-5                  # float32 after normalisation (x ~4.4)
+
+
+def driver_argv(root: Path, ckpt: Path, *extra) -> list:
+    """A user's command line of the port's CLI for the CREMA-D MLA run at
+    bench.py:bench_tpu's configuration (--lorb base --gs_flag, B=64, bf16
+    compute, 224x224 crops of 256x256 frames, 3 frames a clip)."""
+    return ["--device", "cuda", "--train", "--dataset", "CREMAD",
+            "--lorb", "base", "--gs_flag", "--batch_size", str(AV_BATCH),
+            "--epochs", str(DRIVER_EPOCHS), "--data_root", str(root),
+            "--ckpt_path", str(ckpt), "--num_workers", str(DRIVER_WORKERS),
+            "--no-use_tensorboard", *extra]
+
+
+def driver_run(argv, label):
+    """cli.main's path (parse, then driver.run on the card), returning
+    what run returns and the B3 launches it made (counter 0 just before,
+    read just after)."""
+    from mla_tpu_torch.ops.conv3x3 import conv3x3
+    from mla_tpu_torch.runtime.cli import parse_args
+    from mla_tpu_torch.runtime.driver import run
+
+    cfg, device = parse_args(argv)
+    check(device == "cuda", f"{label}: device {device}")
+    conv3x3.launches = 0
+    t = time.perf_counter()
+    state, result = run(cfg, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = conv3x3.launches
+    summary = result.get("history", result)
+    print(f"[driver] {label}: {wall:.2f} s, {launches} B3 launches; "
+          f"{json.dumps(summary)}", flush=True)
+    return cfg, state, result, launches, wall
+
+
+def epoch_line(res):
+    """Epoch 1: the train loop's time and rate (``train_s``, the steps'
+    results read back), and the epoch's with its evaluation."""
+    h = next(x for x in res["history"] if x["epoch"] == 1)
+    return {"loss": h["loss"], "acc": h["acc"], "train_s": h["train_s"],
+            "wall_s": h["wall_s"],
+            "train_clips_per_s": DRIVER_TRAIN / h["train_s"],
+            "epoch_clips_per_s": (DRIVER_TRAIN + DRIVER_TEST) / h["wall_s"]}
+
+
+def epoch_split(prof, epoch: int) -> dict:
+    """One epoch of a traced driver run, read from the driver's spans
+    (``mla.train`` the train loop, ``mla.step`` each step's call,
+    ``mla.transform`` each batch's device transform, ``mla.evaluate``):
+    host ms of each; the rest of the train loop (waiting on the loader's
+    producer, the copies' enqueue); the device's busy share of the train
+    loop (the union of its kernels and copies over the loop's wall); the
+    device ms launched inside the transform and eval spans (a step's
+    backward runs on autograd's device thread, outside its span, so a
+    step's device time is read from the union instead)."""
+    from torch.autograd import DeviceType
+
+    evs = list(prof.events())
+
+    def spans(name, lo=None, hi=None):
+        out = sorted((e for e in evs if e.name == name
+                      and e.device_type == DeviceType.CPU),
+                     key=lambda e: e.time_range.start)
+        if lo is None:
+            return out
+        return [e for e in out
+                if lo <= e.time_range.start and e.time_range.end <= hi]
+
+    def host_ms(es):
+        return sum(e.time_range.elapsed_us() for e in es) / 1e3
+
+    def device_ms(es):
+        return sum(e.device_time_total for e in es) / 1e3
+
+    train = spans("mla.train")[epoch]
+    lo, hi = train.time_range.start, train.time_range.end
+    steps, tf = spans("mla.step", lo, hi), spans("mla.transform", lo, hi)
+    ev = spans("mla.evaluate")[epoch]
+    busy, end = 0.0, lo
+    for a, b in sorted((max(e.time_range.start, lo), min(e.time_range.end, hi))
+                       for e in evs if e.device_type == DeviceType.CUDA
+                       and not e.name.startswith("mla.")
+                       and e.time_range.end > lo and e.time_range.start < hi):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    loop_ms = host_ms([train])
+    return {"train_ms": loop_ms, "steps": len(steps),
+            "step_host_ms": host_ms(steps),
+            "transforms": len(tf), "transform_host_ms": host_ms(tf),
+            "transform_device_ms": device_ms(tf),
+            "loader_wait_ms": loop_ms - host_ms(steps) - host_ms(tf),
+            "train_device_busy_ms": busy / 1e3,
+            "train_device_busy_share": busy / 1e3 / loop_ms,
+            "eval_ms": host_ms([ev]), "eval_device_ms": device_ms([ev])}
+
+
+def phase_driver(work: Path):
+    """Phase 11: CREMA-D trained end to end through the port's CLI and
+    driver, from files on disk (synthetic.make_cremad, seeded), at full
+    width and depth: 2 epochs with --pallas_conv on and --save_last (B3
+    52 x 3 steps + 26 x 1 eval batch an epoch), eval-only from the best
+    checkpoint, --resume from `last` for a third epoch, and the same 2
+    epochs on the default route (--pallas_conv auto: cuDNN, no B3), and
+    the B3 run once more under torch.profiler for epoch 1's split. Then
+    the loader alone over an epoch, the transform's device time per batch,
+    and the on-device transform against the CPU's at the full batch."""
+    from mla_tpu_torch.data import native_loader, synthetic
+    from mla_tpu_torch.data.datasets import build_adapter
+    from mla_tpu_torch.data.pipeline import Loader, pad_rows
+    from mla_tpu_torch.data.transforms import av_frames_transform
+    from mla_tpu_torch.runtime import checkpoint as ckpt_lib
+
+    root = work / "cremad"
+    t = time.perf_counter()
+    synthetic.make_cremad(str(root), n_train=DRIVER_TRAIN, n_test=DRIVER_TEST,
+                          spec_shape=DRIVER_SPEC, learnable=True,
+                          frame_hw=DRIVER_FRAME_HW)
+    native = native_loader.available()
+    jpgs = list(root.glob("visual/*/Image-01-FPS/*/*.jpg"))
+    jpg_kb = sum(f.stat().st_size for f in jpgs) / len(jpgs) / 1e3
+    print(f"[driver] wrote the CREMA-D tree ({DRIVER_TRAIN} + {DRIVER_TEST} "
+          f"clips, 4 {DRIVER_FRAME_HW} JPEG frames of {jpg_kb:.1f} kB on "
+          f"average and a {DRIVER_SPEC} spectrogram each) in "
+          f"{time.perf_counter() - t:.1f} s; native decoder built: {native}",
+          flush=True)
+    out = {"native_decoder": native, "frame_hw": list(DRIVER_FRAME_HW),
+           "jpeg_kb": jpg_kb, "num_workers": DRIVER_WORKERS}
+
+    # -- the main path: 2 epochs, B3 on ------------------------------------
+    ck = work / "ck_on"
+    cfg, state, res, launches, wall = driver_run(
+        driver_argv(root, ck, "--pallas_conv", "on"), "train, B3 on")
+    expect = (2 * 2 * B3_SITES * DRIVER_TRAIN // AV_BATCH
+              + 2 * B3_SITES * DRIVER_TEST // AV_BATCH) * DRIVER_EPOCHS
+    check(launches == expect, f"driver: {launches} B3 launches, {expect} "
+          "expected (52 a step, 26 an eval batch)")
+    hist = res["history"]
+    check([h["epoch"] for h in hist] == [0, 1]
+          and all(np.isfinite(h[k]) for h in hist
+                  for k in ("loss", "loss_a", "loss_v", "acc")),
+          f"driver history {hist}")
+    check(all_finite(state.params.values()), "driver: non-finite parameter")
+    best = sorted(n for n in os.listdir(ck) if n.startswith("best_model")
+                  and not n.endswith(".json"))
+    last = ck / "last"
+    check(best and (ck / best[-1] / ckpt_lib.STATE_FILE).is_file()
+          and (last / ckpt_lib.STATE_FILE).is_file()
+          and ckpt_lib.load_meta(str(last))["saved_epoch"] == 1,
+          f"driver checkpoints: {sorted(os.listdir(ck))}")
+    out["on"] = {"epoch1": epoch_line(res), "launches": launches,
+                 "run_s": wall, "best_acc": res["best_acc"],
+                 "history": hist}
+    del state
+
+    # eval-only from the best checkpoint
+    _, _, accs, ev_launches, _ = driver_run(
+        [a for a in driver_argv(root, ck / best[-1], "--pallas_conv", "on")
+         if a != "--train"], "eval-only, best checkpoint")
+    check(ev_launches == 2 * B3_SITES * DRIVER_TEST // AV_BATCH,
+          f"eval-only: {ev_launches} B3 launches")
+    check(abs(accs["acc"] - res["best_acc"]) <= 1.0 / DRIVER_TEST + 1e-9,
+          f"eval-only accuracy {accs['acc']} against the best "
+          f"{res['best_acc']}")
+    # --resume from `last` for a third epoch
+    _, st3, res3, rs_launches, _ = driver_run(
+        driver_argv(root, ck, "--pallas_conv", "on", "--resume", str(last),
+                    "--epochs", str(DRIVER_EPOCHS + 1)), "resume, epoch 2")
+    check([h["epoch"] for h in res3["history"]] == [2]
+          and np.isfinite(res3["history"][0]["loss"])
+          and all_finite(st3.params.values()), f"resume: {res3}")
+    check(rs_launches == expect // DRIVER_EPOCHS,
+          f"resume: {rs_launches} B3 launches")
+    out.update(eval_only={"acc": accs["acc"], "launches": ev_launches},
+               resume={"history": res3["history"], "launches": rs_launches})
+    launches += ev_launches + rs_launches
+    del st3
+    torch.cuda.empty_cache()
+
+    # -- the yardstick: the default route (auto = cuDNN) --------------------
+    _, st_off, res_off, off_launches, off_wall = driver_run(
+        driver_argv(root, work / "ck_auto"), "train, --pallas_conv auto")
+    check(off_launches == 0, f"default route: {off_launches} B3 launches")
+    check(all(np.isfinite(h["loss"]) for h in res_off["history"]),
+          f"default route history {res_off['history']}")
+    out["auto"] = {"epoch1": epoch_line(res_off),
+                   "run_s": off_wall, "history": res_off["history"]}
+    del st_off
+    torch.cuda.empty_cache()
+
+    # -- where epoch 1's time goes: the B3 run again, under torch.profiler -
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, st_tr, res_tr, _, _ = driver_run(
+            driver_argv(root, work / "ck_trace", "--pallas_conv", "on"),
+            "train, B3 on, traced")
+    split = epoch_split(prof, 1)
+    check(split["steps"] == DRIVER_TRAIN // AV_BATCH
+          and split["transforms"] == DRIVER_TRAIN // AV_BATCH
+          and 0 < split["train_device_busy_share"] <= 1.0,
+          f"trace of epoch 1: {split}")
+    out["trace_epoch1"] = {**split, "wall_s": epoch_line(res_tr)["wall_s"]}
+    del st_tr, prof
+    torch.cuda.empty_cache()
+
+    # -- the loader alone: host decode + pinned H2D + on-device transform --
+    adapter = build_adapter(cfg, "train")
+    loader = Loader(adapter, AV_BATCH, seed=0, num_workers=DRIVER_WORKERS,
+                    device="cuda")
+    for _ in loader.epoch(0):        # warm: file cache, pinned blocks
+        pass
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    n = 0
+    for batch in loader.epoch(1):
+        n += int(batch["valid"].sum())
+    torch.cuda.synchronize()
+    loader_s = time.perf_counter() - t
+    check(n == DRIVER_TRAIN, f"loader epoch: {n} clips")
+
+    # -- the transform: device time per batch, card against CPU -----------
+    # one batch's pieces: host IO + geometry (over the loader's workers),
+    # pinned staging, the copy
+    idx = list(range(AV_BATCH))
+    t = time.perf_counter()
+    with ThreadPoolExecutor(DRIVER_WORKERS) as pool:
+        hb = pad_rows(adapter.batch_host(
+            idx, [np.random.default_rng((0, 0, i)) for i in idx], pool.map),
+            AV_BATCH, AV_BATCH, len(adapter))
+    host_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    staged = loader._stage(hb)
+    stage_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    on_card = {k: v.to("cuda", non_blocking=True) for k, v in staged.items()}
+    torch.cuda.synchronize()
+    h2d_ms = (time.perf_counter() - t) * 1e3
+    nbytes = sum(v.numel() * v.element_size() for v in staged.values())
+    del on_card
+    cpu = [torch.from_numpy(hb[k]) for k in ("frames", "boxes", "flip")]
+    dev = [x.cuda() for x in cpu]
+
+    def transform():
+        return av_frames_transform(*dev, out=cfg.image_size or 224,
+                                   out_dtype=torch.bfloat16)
+
+    tf_ms = time_cuda(transform, reps=10)
+    prof = profile_call(transform)
+    got = av_frames_transform(*dev, out=224).float().cpu()
+    want = av_frames_transform(*cpu, out=224)
+    err = float((got - want).abs().max())
+    check(err <= TRANSFORM_TOL, f"transform on the card against the CPU: "
+          f"max abs {err:.3g} > {TRANSFORM_TOL}")
+    train_s = out["on"]["epoch1"]["train_s"]
+    out.update(loader={"epoch_s": loader_s,
+                       "clips_per_s": DRIVER_TRAIN / loader_s,
+                       "share_of_train_loop_on": loader_s / train_s,
+                       "batch_host_ms": host_ms, "pin_ms": stage_ms,
+                       "h2d_ms": h2d_ms, "h2d_bytes": nbytes},
+               transform={"ms": tf_ms, "device_ms": prof["device_ms"],
+                          "top": prof["top"][:6], "cpu_max_abs_err": err,
+                          "tol": TRANSFORM_TOL},
+               launches=launches)
+    print(f"[driver] epoch 1, B3 on: {json.dumps(out['on']['epoch1'])}; "
+          f"default route: {json.dumps(out['auto']['epoch1'])}", flush=True)
+    print(f"[driver] epoch 1 traced (B3 on): "
+          f"{json.dumps(out['trace_epoch1'])}", flush=True)
+    print(f"[driver] loader alone: {loader_s:.3f} s an epoch, "
+          f"{DRIVER_TRAIN / loader_s:.1f} clips/s "
+          f"({100 * loader_s / train_s:.1f}% of epoch 1's train loop with "
+          f"B3 on); one batch: host IO {host_ms:.1f} ms over "
+          f"{DRIVER_WORKERS} workers, pinned staging {stage_ms:.1f} ms, copy "
+          f"{h2d_ms:.2f} ms ({nbytes / 1e6:.1f} MB); transform "
+          f"{tf_ms:.3f} ms a batch by CUDA events, device "
+          f"{prof['device_ms']:.3f} ms; card vs CPU "
+          f"max abs {err:.3g}; native decoder built: {native}", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: torch.cuda.is_available() is false")
@@ -2388,6 +2698,11 @@ def main():
         shutil.rmtree(work, ignore_errors=True)
     head_training = phase_head_training(training["median_step_ms"])
     ln_path = phase_ln_dense()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "build"))
+    try:
+        driver = phase_driver(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     def main_shape(rs):
         return next(r for r in rs if r["shape"] == [64, 257, 12, 64]
@@ -2432,8 +2747,10 @@ def main():
         "at": "B=192 H=W=56 C=F=64 bf16 (visual layer 1)",
         "source": "mla_tpu_torch/ops/csrc/conv3x3.cu",
         "replaces": "mla_tpu/ops/conv3x3.py:95",
-        # AV serving dispatches + AV training steps, eval, joint, QMF
-        "launches": av_serving["launches"] + av_training["launches"],
+        # AV serving dispatches + AV training steps, eval, joint, QMF +
+        # the driver's runs (train, eval-only, resume)
+        "launches": av_serving["launches"] + av_training["launches"]
+        + driver["launches"],
         "max_abs_err": conv["max_abs_err"], "ms": conv["ms"],
         "device_ms": conv["device_ms"],
         "plain_ms": conv["plain_ms"], "bound_ms": conv["bound_ms"],
@@ -2556,7 +2873,7 @@ def main():
         "serving": serving, "training": training,
         "av_serving": av_serving, "av_training": av_training,
         "int8_serving": int8, "head_training": head_training,
-        "ln_dense_path": ln_path,
+        "ln_dense_path": ln_path, "driver": driver,
         "seconds": time.perf_counter() - t_start}, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))

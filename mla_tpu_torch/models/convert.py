@@ -22,11 +22,13 @@ like the params) onto the port's parameter names with the same key mapping,
 and ``gs_state_from_jax`` / ``qmf_state_from_jax`` carry the GS projector
 and the QMF history; ``batch_stats_from_jax`` the BatchNorm running
 statistics. They read plain attributes and arrays, so the port needs none
-of the JAX package to take them.
+of the JAX package to take them. ``train_state_from_jax`` builds a whole
+train state from the numpy trees a JAX checkpoint holds.
 """
 
 from __future__ import annotations
 
+import types
 from typing import Dict, Mapping
 
 import numpy as np
@@ -272,6 +274,46 @@ def qmf_state_from_jax(qmf):
     n_data + 1 slots) -> the port's."""
     return QMFState(correctness={m: _t(v) for m, v in qmf.correctness.items()},
                     confidence={m: _t(v) for m, v in qmf.confidence.items()})
+
+
+def train_state_from_jax(cfg, params: Mapping, batch_stats=None,
+                         opt_state: Mapping = None, gs: Mapping = None,
+                         qmf: Mapping = None, step: int = 0, device=None):
+    """A JAX train state's numpy trees (what its checkpoint holds: params,
+    batch_stats, opt_state, gs ``{Pl, exp_count}``, qmf ``{correctness,
+    confidence}``, step) -> the port's ``TrainState`` on ``device`` (the
+    card unless 'cpu' is asked for), its model built by ``make_classifier``
+    with these weights. The JAX PRNG key has no torch counterpart: the
+    state's generator is seeded with 0."""
+    from mla_tpu_torch.models.classifiers import make_classifier
+    from mla_tpu_torch.train import optim
+    from mla_tpu_torch.train.state import create_train_state
+
+    model = make_classifier(cfg)
+    model.load_state_dict(state_dict_from_jax(
+        _tree_f32(params), cfg,
+        None if batch_stats is None else _tree_f32(batch_stats)),
+        strict=True, assign=True)
+    n_data = 0 if qmf is None else \
+        len(next(iter(qmf["correctness"].values()))) - 1
+    state = create_train_state(model, cfg, optim.make_spec(cfg), n_data=n_data,
+                               device=device)
+    dev = next(model.parameters()).device
+    if opt_state is not None:
+        state.opt_state = {
+            k: {n: (v.to(dev) if isinstance(v, torch.Tensor) else v)
+                for n, v in tree.items()}
+            for k, tree in opt_state_from_jax(opt_state, cfg).items()}
+    if gs is not None:
+        g = gs_state_from_jax(types.SimpleNamespace(**gs))
+        state.gs = GSState(Pl=g.Pl.to(dev), exp_count=g.exp_count)
+    if qmf is not None:
+        q = qmf_state_from_jax(types.SimpleNamespace(**qmf))
+        state.qmf = QMFState(
+            correctness={m: v.to(dev) for m, v in q.correctness.items()},
+            confidence={m: v.to(dev) for m, v in q.confidence.items()})
+    state.step = int(np.asarray(step))
+    return state
 
 
 def load_reference_checkpoint(path: str) -> Dict[str, torch.Tensor]:

@@ -63,7 +63,7 @@ def test_resolve_device_never_falls_back(monkeypatch):
 def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     import torch
     from mla_tpu_torch.core.config import MLAConfig, config_from_args
-    from mla_tpu_torch.runtime import export, serve
+    from mla_tpu_torch.runtime import cli, driver, export, serve
 
     # the device knob belongs to the entry points (serve --device; export
     # --device, for int8_a8's calibration forward); the config has none
@@ -78,6 +78,12 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
         export.calibrate_a8(MLAConfig(), {}, {})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--artifact", str(tmp_path), "--input", "x.npz"])
+    # the training CLI and the driver: --device / device= default to cuda
+    assert cli.parse_args(["--train"])[1] == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--train", "--data_root", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        driver.run(MLAConfig(train=True, data_root=str(tmp_path)))
 
 
 def test_cpu_tensor_takes_plain_version_cuda_tensor_never(monkeypatch):
