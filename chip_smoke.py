@@ -127,6 +127,41 @@ result line:
               (CUDA events and device time) and the transform on the card
               against the CPU at the full batch (64 x 3 frames, float32,
               max abs <= 5e-5), and whether the C++ decoder was built.
+12. m3ae driver — the base M3AE classifier (Food-101, 101 classes, 768
+              wide, 12 blocks, 256 tokens) trained end to end through the
+              port's CLI (cli.parse_args, then driver.run on the card) from
+              files on disk: synthetic.make_m3ae writes 192 + 64 seeded
+              samples (a 384x512 JPEG, Food-101's longest side, and a
+              256-token cache each), and the M3AE adapter (cv2
+              over 8 workers, or the C++ decoder where it builds), the
+              loader and the on-device cubic + jitter transform (its
+              draws from each batch's generator) feed the steps.
+              --gs_flag -dynamic, B=64, bf16 compute, 256x256 crops of the
+              288x288 decode: 2 epochs with --save_last; eval-only from
+              the best checkpoint with --export_dir (its accuracy and its
+              eval batch's logits equal, bit for bit, to the training
+              run's at the saved epoch; the artifact's token feature
+              int32; one request through load_serving/run_batch against
+              the eval model's logits, relative L2 <= 3e-2); --resume
+              from `last` for a third epoch; the 2 epochs again under
+              torch.profiler for epoch 1's split; one epoch under
+              --scan_blocks --remat_blocks with each --remat_policy (full,
+              dots): peak memory against the run without remat; every
+              step's losses and the epoch's eval logits equal, bit for
+              bit, to epoch 0 of the run without remat, so the recomputed
+              backward through B1f/B1b is held; then bare MLA steps of
+              the three configurations in turns (2 rounds x 6 steps):
+              wall, host and device ms a step; one MVSA epoch (3
+              classes); --pretrained_v
+              from a seeded reference-layout file the phase writes (mae_v
+              equal to the file). Every train step
+              must launch B1f and B1b 24 times each (48 and 24 under
+              remat: the recomputation relaunches B1f), every eval batch
+              B1f 24 times, each read just before and just after the
+              call; B2f/B2b, the plain attention and SDPA never. Then the
+              loader alone, the transform's time per batch and the
+              transform on the card against the CPU at the full batch with
+              the jitter's factors fed (max abs <= 5e-5).
 
 Phase 3 also holds the int8 kernels against their plain versions: B4 and
 B5 (weight-only and W8A8) at the four block sites of the base width (qkv
@@ -2664,6 +2699,549 @@ def phase_driver(work: Path):
     return out
 
 
+
+# ---------------------------------------------------------------- phase 12
+
+M3AE_TRAIN, M3AE_TEST = 192, 64       # 3 MLA steps + 1 eval batch an epoch
+M3AE_IMG_HW = (384, 512)              # Food-101's longest side is 512
+M3AE_TOKENS = 256                     # the reference's token caches
+M3AE_IMAGE = None                     # --image_size: None keeps 256 (288
+                                      # decode); a rehearsal sets 32
+
+
+def m3ae_argv(root: Path, ckpt: Path, *extra, dataset="Food101") -> list:
+    """A user's command line of the port's CLI for the M3AE MLA run of
+    PERF.md's M3AE training cell (--lorb m3ae --gs_flag -dynamic, B=64,
+    bf16 compute, 256x256 crops)."""
+    size = [] if M3AE_IMAGE is None else ["--image_size", str(M3AE_IMAGE)]
+    return ["--device", "cuda", "--train", "--dataset", dataset,
+            "--lorb", "m3ae", "--m3ae_size", TRAIN_SIZE, "--gs_flag",
+            "-dynamic", "--batch_size", str(TRAIN_BATCH),
+            "--compute_dtype", "bfloat16", "--epochs", str(DRIVER_EPOCHS),
+            "--data_root", str(root), "--ckpt_path", str(ckpt),
+            "--num_workers", str(DRIVER_WORKERS), "--no-use_tensorboard",
+            *size, *extra]
+
+
+class AttentionAudit:
+    """The driver's run, watched: every train and eval step's B1f/B1b
+    launches (read just before and just after the call), and each train
+    step's losses and its span on the card's stream (CUDA events recorded
+    around the call, read after the run: no synchronisation), through
+    wrappers around the step factories the driver calls; every eval
+    batch's logits (fused, then each modality's); calls of
+    the plain attention (``attention_reference``,
+    ``flat_attention_reference``) and of SDPA, which the card's path must
+    never make."""
+
+    def __init__(self):
+        self.steps, self.evals, self.losses, self.plain = [], [], [], 0
+        self.events, self.logits = [], []
+
+    def __enter__(self):
+        import torch.nn.functional as F
+        from mla_tpu_torch.evals import metrics
+        from mla_tpu_torch.ops import attention as attn
+        from mla_tpu_torch.runtime import driver as drv
+
+        self._saved = [(drv, "make_train_step", drv.make_train_step),
+                       (drv, "make_eval_step", drv.make_eval_step),
+                       (metrics, "eval_logits", metrics.eval_logits),
+                       (attn, "attention_reference", attn.attention_reference),
+                       (attn, "flat_attention_reference",
+                        attn.flat_attention_reference),
+                       (F, "scaled_dot_product_attention",
+                        F.scaled_dot_product_attention)]
+        audit = self
+
+        def counted(make, into, losses):
+            def factory(*a, **k):
+                step = make(*a, **k)
+
+                def run(*args, **kw):
+                    ev = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)] if losses is not None else None
+                    before = launch_counts()
+                    if ev:
+                        ev[0].record()
+                    out = step(*args, **kw)
+                    if ev:
+                        ev[1].record()
+                        audit.events.append(ev)
+                    after = launch_counts()
+                    into.append((after[0] - before[0], after[1] - before[1]))
+                    if losses is not None:
+                        losses.append({n: out[1][n].detach().clone()
+                                       for n in ("loss", "loss_a", "loss_v")})
+                    return out
+                return run
+            return factory
+
+        def plain(fn):
+            def call(*a, **k):
+                audit.plain += 1
+                return fn(*a, **k)
+            return call
+
+        def logits(fn):
+            def call(*a, **k):
+                out_m, fused = fn(*a, **k)
+                audit.logits.append([fused.detach().clone()] + [
+                    out_m[m].detach().clone() for m in sorted(out_m)])
+                return out_m, fused
+            return call
+
+        drv.make_train_step = counted(drv.make_train_step, self.steps,
+                                      self.losses)
+        drv.make_eval_step = counted(drv.make_eval_step, self.evals, None)
+        metrics.eval_logits = logits(metrics.eval_logits)
+        for mod, name, fn in self._saved[3:]:
+            setattr(mod, name, plain(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        return False
+
+    def step_ms(self):
+        """Each train step's span on the stream, ms (after the run)."""
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def m3ae_driver_run(argv, label, per_step, per_eval=None):
+    """cli.main's path (parse, then driver.run on the card) under an
+    ``AttentionAudit``: every step must launch ``per_step`` (B1f, B1b) and
+    every eval batch (``per_eval`` or depth x 2, 0) and nothing else; the
+    run's B2f/B2b launches must be 0. Returns (cfg, state, result, audit,
+    {B1f, B1b, ...} launches over the run, wall s, peak bytes)."""
+    from mla_tpu_torch.runtime.cli import parse_args
+    from mla_tpu_torch.runtime.driver import run
+
+    cfg, device = parse_args(argv)
+    check(device == "cuda", f"{label}: device {device}")
+    depth = m3ae_depth()
+    per_eval = per_eval or (2 * depth, 0)
+    for fn in attention_kernels().values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with AttentionAudit() as audit:
+        state, result = run(cfg, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = attention_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["B2f"] == launches["B2b"] == 0 and audit.plain == 0,
+          f"{label}: the head route or the plain attention ran: {launches}, "
+          f"{audit.plain} plain calls")
+    check(all(c == per_step for c in audit.steps),
+          f"{label}: (B1f, B1b) per step {audit.steps}, {per_step} expected")
+    check(all(c == per_eval for c in audit.evals),
+          f"{label}: (B1f, B1b) per eval batch {audit.evals}, {per_eval} "
+          "expected")
+    check(launches["B1f"] == per_step[0] * len(audit.steps)
+          + per_eval[0] * len(audit.evals)
+          and launches["B1b"] == per_step[1] * len(audit.steps),
+          f"{label}: {launches} over {len(audit.steps)} steps and "
+          f"{len(audit.evals)} eval batches")
+    summary = result.get("history", result)
+    print(f"[m3ae] {label}: {wall:.2f} s, {len(audit.steps)} steps, "
+          f"{len(audit.evals)} eval batches, B1f {launches['B1f']}, B1b "
+          f"{launches['B1b']}, peak {peak / 2**30:.2f} GiB; "
+          f"{json.dumps(summary)}", flush=True)
+    return cfg, state, result, audit, launches, wall, peak
+
+
+def remat_steps(cfgs: dict, rounds=2, n=6) -> dict:
+    """Bare MLA steps of the phase's model under each remat policy
+    (``cfgs``: policy or None -> config), in turns: ``rounds`` x policies,
+    a fresh train state from seed 0 each, the same two batches. Per policy
+    the median over rounds of a round's median past its first two steps:
+    a step's wall ms (synchronised around it) and host ms (until the call
+    returns), and the device ms of one profiled step."""
+    from mla_tpu_torch.models.classifiers import build_classifier
+    from mla_tpu_torch.train import optim
+    from mla_tpu_torch.train.state import create_train_state
+    from mla_tpu_torch.train.steps import make_train_step
+
+    rng = np.random.default_rng(12)
+    batches = [train_batch(rng, TRAIN_BATCH) for _ in range(2)]
+    rows = {p: [] for p in cfgs}
+    for _ in range(rounds):
+        for p, cfg in cfgs.items():
+            model = build_classifier(cfg, seed=0)
+            spec = optim.make_spec(cfg)
+            state = create_train_state(model, cfg, spec, seed=0)
+            step = make_train_step(model, cfg, spec, len_dl=n + 1)
+            lr = optim.lr_for_epoch(cfg, 0)
+            wall, host = [], []
+            for i in range(n):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, _ = step(state, batches[i % 2], lr, i)
+                host.append(time.perf_counter() - t)
+                torch.cuda.synchronize()
+                wall.append(time.perf_counter() - t)
+            dev = profile_call(lambda: step(state, batches[0], lr, n))
+            rows[p].append((1e3 * np.median(wall[2:]),
+                            1e3 * np.median(host[2:]), dev["device_ms"]))
+            del model, state, step
+            torch.cuda.empty_cache()
+    return {p: {k: float(np.median([r[j] for r in rs])) for j, k in
+                enumerate(("step_ms", "host_ms", "device_ms"))}
+            for p, rs in rows.items()}
+
+
+def same_logits(got, want) -> bool:
+    """Two runs' eval logits (``AttentionAudit.logits``), bit for bit."""
+    return len(got) == len(want) and all(
+        len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+        for a, b in zip(got, want))
+
+
+def m3ae_depth() -> int:
+    from mla_tpu_torch.models.m3ae import M3AE_CONFIGS
+    return M3AE_CONFIGS[TRAIN_SIZE][1]
+
+
+def m3ae_epoch_line(res, epoch=1):
+    h = next(x for x in res["history"] if x["epoch"] == epoch)
+    return {"loss": h["loss"], "acc": h["acc"], "train_s": h["train_s"],
+            "wall_s": h["wall_s"],
+            "train_samples_per_s": M3AE_TRAIN / h["train_s"],
+            "epoch_samples_per_s": (M3AE_TRAIN + M3AE_TEST) / h["wall_s"]}
+
+
+def write_reference_m3ae(path: Path, seed: int):
+    """A seeded M3AE encoder checkpoint in the reference layout
+    (DataParallel ``module.`` prefix, the reference's module names) at the
+    phase's width; returns its state_dict."""
+    from mla_tpu_torch.models.m3ae import M3AEConfig, M3AEEncoder
+    enc = M3AEEncoder(M3AEConfig(TRAIN_SIZE)).to_empty(device="cpu")
+    enc.reset_parameters(torch.Generator().manual_seed(seed))
+    sd = {"module." + k: v.clone() for k, v in enc.state_dict().items()}
+    torch.save(sd, path)
+    return sd
+
+
+def phase_m3ae_driver(work: Path):
+    """Phase 12: the M3AE image-text classifier trained end to end through
+    the port's CLI and driver from files on disk (synthetic.make_m3ae,
+    seeded: JPEGs at 384x512 and 256-token caches), at full width and
+    depth: 2 epochs with --save_last, eval-only from the best checkpoint
+    with --export_dir (one request through the artifact), --resume from
+    `last` for a third epoch, the 2 epochs again under torch.profiler for
+    epoch 1's split, one epoch under --remat_blocks 'full' and 'dots'
+    (and bare steps of each policy in turns, timed), one MVSA epoch and
+    --pretrained_v from a reference-layout file. Then
+    the loader alone, the cubic + jitter transform's time per batch, and
+    the transform on the card against the CPU at the full batch."""
+    from mla_tpu_torch.data import native_loader, synthetic
+    from mla_tpu_torch.data import transforms as T
+    from mla_tpu_torch.data.datasets import build_adapter
+    from mla_tpu_torch.data.pipeline import Loader, pad_rows
+    from mla_tpu_torch.evals.metrics import eval_logits
+    from mla_tpu_torch.ops import image as im
+    from mla_tpu_torch.runtime import checkpoint as ckpt_lib
+    from mla_tpu_torch.runtime.cli import parse_args
+    from mla_tpu_torch.runtime.export import load_serving
+    from mla_tpu_torch.runtime.serve import run_batch
+
+    depth = m3ae_depth()
+    step_n = (2 * depth, 2 * depth)            # 2 sub-steps x depth blocks
+    steps_an_epoch = -(-M3AE_TRAIN // TRAIN_BATCH)
+    t = time.perf_counter()
+    roots = {}
+    for ds in ("Food101", "MVSA"):
+        roots[ds] = work / ds
+        synthetic.make_m3ae(str(roots[ds]), dataset=ds, n_train=M3AE_TRAIN,
+                            n_test=M3AE_TEST, token_len=M3AE_TOKENS,
+                            img_hw=M3AE_IMG_HW)
+    native = native_loader.available()
+    jpgs = list(roots["Food101"].glob("visual/*/*.jpg"))
+    jpg_kb = sum(f.stat().st_size for f in jpgs) / len(jpgs) / 1e3
+    print(f"[m3ae] wrote Food-101 and MVSA trees ({M3AE_TRAIN} + "
+          f"{M3AE_TEST} samples each: a {M3AE_IMG_HW} JPEG of {jpg_kb:.1f} kB "
+          f"on average and {M3AE_TOKENS} tokens) in "
+          f"{time.perf_counter() - t:.1f} s; native decoder built: {native}",
+          flush=True)
+    out = {"native_decoder": native, "img_hw": list(M3AE_IMG_HW),
+           "jpeg_kb": jpg_kb, "num_workers": DRIVER_WORKERS, "depth": depth}
+    total = {"B1f": 0, "B1b": 0}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    def floats(losses):
+        return [{k: float(v) for k, v in x.items()} for x in losses]
+
+    def finite_history(hist, label):
+        check(all(np.isfinite(h[k]) for h in hist
+                  for k in ("loss", "loss_a", "loss_v", "acc")),
+              f"{label}: history {hist}")
+
+    # -- the main path: 2 epochs with --save_last ---------------------------
+    ck = work / "ck"
+    cfg, state, res, audit, launches, wall, peak = m3ae_driver_run(
+        m3ae_argv(roots["Food101"], ck), "train", step_n)
+    hist = res["history"]
+    check([h["epoch"] for h in hist] == [0, 1]
+          and len(audit.steps) == DRIVER_EPOCHS * steps_an_epoch
+          and len(audit.evals) == DRIVER_EPOCHS * -(-M3AE_TEST // TRAIN_BATCH),
+          f"train: epochs {hist}, {len(audit.steps)} steps")
+    finite_history(hist, "train")
+    check(all_finite(state.params.values()), "train: non-finite parameter")
+    best = sorted(n for n in os.listdir(ck) if n.startswith("best_model")
+                  and not n.endswith(".json"))
+    last = ck / "last"
+    check(bool(best) and (ck / best[-1] / ckpt_lib.STATE_FILE).is_file()
+          and ckpt_lib.load_meta(str(last))["saved_epoch"] == 1,
+          f"train checkpoints: {sorted(os.listdir(ck))}")
+    first_loss = {k: float(v) for k, v in audit.losses[0].items()}
+    epoch0_losses = audit.losses[:steps_an_epoch]
+    eval_batches = len(audit.evals) // DRIVER_EPOCHS
+    epoch_logits = [audit.logits[e * eval_batches:(e + 1) * eval_batches]
+                    for e in range(DRIVER_EPOCHS)]
+    step_ms = audit.step_ms()
+    out["train"] = {"epoch1": m3ae_epoch_line(res), "launches": launches,
+                    "run_s": wall, "peak_bytes": peak, "step_ms": step_ms,
+                    # past the first step (allocator and library warm-up)
+                    "step_ms_median": float(np.median(step_ms[1:])),
+                    "best_acc": res["best_acc"], "history": hist,
+                    "first_step_loss": first_loss}
+    print(f"[m3ae] accuracy by epoch: {[h['acc'] for h in hist]}; epoch 1: "
+          f"{json.dumps(out['train']['epoch1'])}", flush=True)
+    add(launches)
+    del state
+    torch.cuda.empty_cache()
+
+    # -- eval-only from the best checkpoint, exporting ----------------------
+    art = work / "export"
+    ev_argv = [a for a in m3ae_argv(roots["Food101"], ck / best[-1],
+                                    "--export_dir", str(art))
+               if a != "--train"]
+    _, ev_state, accs, ev_audit, ev_launches, _, _ = m3ae_driver_run(
+        ev_argv, "eval-only, best checkpoint, --export_dir", step_n)
+    # the restored model is the trained one of the saved epoch: the same
+    # accuracy and, bit for bit, the same logits on every eval batch
+    saved = ckpt_lib.load_meta(str(ck / best[-1]))["saved_epoch"]
+    check(not ev_audit.steps and accs["acc"] == res["best_acc"]
+          and same_logits(ev_audit.logits, epoch_logits[saved]),
+          f"eval-only accuracy {accs} against the best {res['best_acc']} "
+          f"(epoch {saved}), or its logits differ from that epoch's")
+    add(ev_launches)
+    meta = json.loads((art / "meta.json").read_text())
+    specs = meta["feature_specs"]
+    check(specs["token"]["dtype"] == "int32"
+          and specs["padding_mask"]["dtype"] == "float32",
+          f"export: feature specs {specs}")
+    side = M3AE_IMAGE or 256
+    req = request(np.random.default_rng(12), 3, M3AE_TOKENS, side)
+    flat_attention_fwd = attention_kernels()["B1f"]
+    before = flat_attention_fwd.launches
+    srv = load_serving(str(art), device="cuda")
+    got = run_batch(srv, req)
+    check(flat_attention_fwd.launches - before == 2 * depth,
+          f"export: {flat_attention_fwd.launches - before} B1f launches a "
+          "request")
+    add({"B1f": flat_attention_fwd.launches - before, "B1b": 0})
+    batch = {k: torch.from_numpy(v).cuda() for k, v in req.items()}
+    batch["valid"] = torch.ones(3).cuda()
+    ev_state.model.eval()
+    with torch.inference_mode():
+        before = flat_attention_fwd.launches
+        out_m, fused = eval_logits(ev_state.model, cfg, batch,
+                                   batch["valid"])
+        total["B1f"] += flat_attention_fwd.launches - before
+    want = {"fused": fused, "logits_a": out_m["a"], "logits_v": out_m["v"]}
+    rel = {k: float(np.linalg.norm(got[k] - want[k].float().cpu().numpy())
+                    / np.linalg.norm(want[k].float().cpu().numpy()))
+           for k in want}
+    check(all(v <= 3e-2 for v in rel.values()),
+          f"export: the artifact's logits against the eval model's: {rel}")
+    out["eval_only"] = {"acc": accs["acc"], "launches": ev_launches,
+                        "feature_specs": specs, "export_rel_l2": rel}
+    del srv, ev_state
+    torch.cuda.empty_cache()
+
+    # -- --resume from `last` for a third epoch ------------------------------
+    _, st3, res3, _, rs_launches, _, _ = m3ae_driver_run(
+        m3ae_argv(roots["Food101"], ck, "--resume", str(last), "--epochs",
+                  str(DRIVER_EPOCHS + 1)), "resume, epoch 2", step_n)
+    check([h["epoch"] for h in res3["history"]] == [2]
+          and all_finite(st3.params.values()), f"resume: {res3}")
+    finite_history(res3["history"], "resume")
+    add(rs_launches)
+    out["resume"] = {"history": res3["history"], "launches": rs_launches}
+    del st3
+    torch.cuda.empty_cache()
+    # a base M3AE train state is 1.8 GB on disk: keep one run's at a time
+    shutil.rmtree(ck, ignore_errors=True)
+
+    # -- where epoch 1's time goes: the main run again, traced -------------
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, st_tr, res_tr, _, tr_launches, _, _ = m3ae_driver_run(
+            m3ae_argv(roots["Food101"], work / "ck_trace", "--no_save_last"),
+            "train, traced", step_n)
+    add(tr_launches)
+    split = epoch_split(prof, 1)
+    check(split["steps"] == steps_an_epoch
+          and split["transforms"] == steps_an_epoch
+          and 0 < split["train_device_busy_share"] <= 1.0,
+          f"trace of epoch 1: {split}")
+    out["trace_epoch1"] = {**split, "wall_s": m3ae_epoch_line(res_tr)["wall_s"]}
+    del st_tr, prof
+    torch.cuda.empty_cache()
+    shutil.rmtree(work / "ck_trace", ignore_errors=True)
+
+    # -- block remat: one epoch under each policy ---------------------------
+    remat_argv = {None: m3ae_argv(roots["Food101"], work / "ck_remat")}
+    out["remat"] = {}
+    for policy in ("full", "dots"):
+        remat_argv[policy] = m3ae_argv(
+            roots["Food101"], work / "ck_remat", "--epochs", "1",
+            "--no_save_last", "--scan_blocks", "--remat_blocks",
+            "--remat_policy", policy)
+        _, st, rr, ra, r_launches, r_wall, r_peak = m3ae_driver_run(
+            remat_argv[policy], f"remat {policy}", (2 * step_n[0], step_n[1]))
+        finite_history(rr["history"], f"remat {policy}")
+        # the same weights and batches as epoch 0 without remat: every
+        # step's losses (each after the last step's update) and the
+        # epoch's eval logits must be equal bit for bit, so a wrong or
+        # stale recomputation under the backward shows
+        check(len(ra.losses) == len(epoch0_losses) and all(
+            torch.equal(a[k], b[k]) for a, b in zip(ra.losses, epoch0_losses)
+            for k in a) and same_logits(ra.logits, epoch_logits[0]),
+            f"remat {policy}: the steps' losses {floats(ra.losses)} against "
+            f"{floats(epoch0_losses)} without remat, or the epoch's eval "
+            "logits differ")
+        add(r_launches)
+        out["remat"][policy] = {
+            "epoch0": m3ae_epoch_line(rr, 0), "launches": r_launches,
+            "run_s": r_wall, "peak_bytes": r_peak,
+            "peak_over_no_remat": r_peak / peak,
+            "first_step_loss": floats(ra.losses[:1])[0]}
+        del st
+        torch.cuda.empty_cache()
+        shutil.rmtree(work / "ck_remat", ignore_errors=True)
+    # the step under each policy, in turns on bare steps (the driver's
+    # epochs are 3 steps beside the loader's threads: too few to time)
+    steps = remat_steps({p: parse_args(a)[0] for p, a in remat_argv.items()})
+    for p, r in steps.items():
+        out["remat"].setdefault(p or "none", {}).update(
+            r, **{f"{k}_over_no_remat": r[k] / steps[None][k] for k in r})
+
+    # -- MVSA: one epoch, 3 classes ------------------------------------------
+    _, st, rm, _, m_launches, _, _ = m3ae_driver_run(
+        m3ae_argv(roots["MVSA"], work / "ck_mvsa", "--epochs", "1",
+                  "--no_save_last", dataset="MVSA"), "MVSA", step_n)
+    n_classes = int(st.model.fusion_module.fc_out.weight.shape[0])
+    check(n_classes == 3, f"MVSA: {n_classes} classes")
+    finite_history(rm["history"], "MVSA")
+    add(m_launches)
+    out["mvsa"] = {"history": rm["history"], "launches": m_launches}
+    del st
+    torch.cuda.empty_cache()
+    shutil.rmtree(work / "ck_mvsa", ignore_errors=True)
+
+    # -- --pretrained_v from a reference-layout file -------------------------
+    pth = work / "m3ae_v.pth"
+    sd = write_reference_m3ae(pth, seed=7)
+    _, st, _, _, p_launches, _, _ = m3ae_driver_run(
+        m3ae_argv(roots["Food101"], work / "ck_pre", "--epochs", "0",
+                  "--pretrained_v", str(pth)), "--pretrained_v", step_n)
+    live = st.model.state_dict()
+    mismatched = [k for k, v in sd.items()
+                  if not torch.equal(live["mae_v." + k[7:]].cpu(), v)]
+    check(not mismatched, f"pretrained: mae_v differs from the file at "
+          f"{mismatched[:5]}")
+    out["pretrained"] = {"keys": len(sd), "launches": p_launches}
+    del st, live
+    torch.cuda.empty_cache()
+
+    # -- the loader alone: host decode + pinned H2D + the transform ---------
+    adapter = build_adapter(cfg, "train")
+    loader = Loader(adapter, TRAIN_BATCH, seed=0, num_workers=DRIVER_WORKERS,
+                    device="cuda")
+    for _ in loader.epoch(0):        # warm: file cache, pinned blocks
+        pass
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    n = 0
+    for b in loader.epoch(1):
+        n += int(b["valid"].sum())
+    torch.cuda.synchronize()
+    loader_s = time.perf_counter() - t
+    check(n == M3AE_TRAIN, f"loader epoch: {n} samples")
+
+    # -- the transform: time per batch, card against CPU -------------------
+    idx = list(range(TRAIN_BATCH))
+    t = time.perf_counter()
+    with ThreadPoolExecutor(DRIVER_WORKERS) as pool:
+        hb = pad_rows(adapter.batch_host(
+            idx, [np.random.default_rng((0, 0, i)) for i in idx], pool.map),
+            TRAIN_BATCH, TRAIN_BATCH, len(adapter))
+    host_ms = (time.perf_counter() - t) * 1e3
+    cpu = [torch.from_numpy(hb[k]) for k in ("image_u8", "boxes", "flip")]
+    dev = [x.cuda() for x in cpu]
+    gen = torch.Generator(device=dev[0].device).manual_seed(0)
+    mean, std = im.IMAGENET_MEAN, im.IMAGENET_STD
+
+    def transform():
+        return T.image_batch_transform(*dev, gen, mean, std, out=side,
+                                       method="cubic", jitter=True,
+                                       out_dtype=torch.bfloat16)
+
+    tf_ms = time_cuda(transform, reps=10)
+    prof = profile_call(transform)
+    f = torch.rand((TRAIN_BATCH, 3), generator=torch.Generator().manual_seed(
+        1)) * 0.8 + 0.6
+    order = torch.argsort(torch.rand(
+        (TRAIN_BATCH, 3), generator=torch.Generator().manual_seed(2)), dim=1)
+    law = T.color_jitter_batch
+    T.color_jitter_batch = lambda g, x: T.apply_jitter(
+        x, f.to(x.device), order.to(x.device))
+    try:
+        got = T.image_batch_transform(*dev, None, mean, std, out=side,
+                                      method="cubic", jitter=True)
+        want = T.image_batch_transform(*cpu, None, mean, std, out=side,
+                                       method="cubic", jitter=True)
+    finally:
+        T.color_jitter_batch = law
+    err = float((got.cpu() - want).abs().max())
+    check(err <= TRANSFORM_TOL, f"cubic + jitter transform on the card "
+          f"against the CPU: max abs {err:.3g} > {TRANSFORM_TOL}")
+    train_s = out["train"]["epoch1"]["train_s"]
+    out.update(loader={"epoch_s": loader_s,
+                       "samples_per_s": M3AE_TRAIN / loader_s,
+                       "share_of_train_loop": loader_s / train_s,
+                       "batch_host_ms": host_ms},
+               transform={"ms": tf_ms, "device_ms": prof["device_ms"],
+                          "top": prof["top"][:6], "cpu_max_abs_err": err,
+                          "tol": TRANSFORM_TOL},
+               launches=total)
+    print(f"[m3ae] epoch 1 traced: {json.dumps(out['trace_epoch1'])}",
+          flush=True)
+    print(f"[m3ae] remat: " + json.dumps(
+        {p: {k: v for k, v in r.items() if k != "epoch0"}
+         for p, r in out["remat"].items()}) + "; without remat: peak "
+        f"{peak / 2**30:.2f} GiB", flush=True)
+    print(f"[m3ae] loader alone: {loader_s:.3f} s an epoch, "
+          f"{M3AE_TRAIN / loader_s:.1f} samples/s "
+          f"({100 * loader_s / train_s:.1f}% of epoch 1's train loop); one "
+          f"batch's host IO {host_ms:.1f} ms over {DRIVER_WORKERS} workers; "
+          f"cubic + jitter transform {tf_ms:.3f} ms a batch by CUDA events, "
+          f"device {prof['device_ms']:.3f} ms; card vs CPU max abs "
+          f"{err:.3g}; launches {total}", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: torch.cuda.is_available() is false")
@@ -2703,6 +3281,11 @@ def main():
         driver = phase_driver(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "build"))
+    try:
+        m3ae_driver = phase_m3ae_driver(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     def main_shape(rs):
         return next(r for r in rs if r["shape"] == [64, 257, 12, 64]
@@ -2713,7 +3296,8 @@ def main():
     kernels = [{"name": "flat_attention_fwd", **common,
                 "source": "mla_tpu_torch/ops/csrc/flat_attention.cu",
                 "replaces": "mla_tpu/ops/attention.py:322",
-                # serving dispatches + training steps, eval, joint, QMF
+                # serving dispatches + training steps, eval, joint, QMF;
+                # int8 dispatches and phase 12's CLI runs are added below
                 "launches": serving["launches"] + training["launches_fwd"],
                 "max_abs_err": fwd["max_abs_err"],
                 "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
@@ -2726,6 +3310,7 @@ def main():
                {"name": "flat_attention_bwd", **common,
                 "source": "mla_tpu_torch/ops/csrc/flat_attention_bwd.cu",
                 "replaces": "mla_tpu/ops/attention.py:386",
+                # training steps; phase 12's CLI runs are added below
                 "launches": training["launches_bwd"],
                 "max_abs_err": bwd["max_abs_err"],
                 "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
@@ -2790,6 +3375,10 @@ def main():
                        ("int8", "int8_scan", "int8_a8_scan"))
                 for k in ("B4", "B5", "B6", "B1f")}
     kernels[0]["launches"] += q8_total["B1f"]
+    # phase 12: the CLI's M3AE runs (train, eval-only and its export's
+    # request, resume, remat under both policies, MVSA, the traced run)
+    kernels[0]["launches"] += m3ae_driver["launches"]["B1f"]
+    kernels[1]["launches"] += m3ae_driver["launches"]["B1b"]
     b4 = [r for r in q8_rows if not r["stacked"]]
     b5 = [r for r in q8_rows if r["stacked"]]
     kernels += [
@@ -2874,6 +3463,7 @@ def main():
         "av_serving": av_serving, "av_training": av_training,
         "int8_serving": int8, "head_training": head_training,
         "ln_dense_path": ln_path, "driver": driver,
+        "m3ae_driver": m3ae_driver,
         "seconds": time.perf_counter() - t_start}, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -5,17 +5,22 @@ Split design: ``sample_host(i, rng)`` does file IO and augmentation-geometry
 sampling on the host (numpy, deterministic per-epoch generators keyed by
 (seed, epoch, i), the same draws as the JAX package's); ``batch_host`` does
 it for a batch through the C++ loader when it is built; ``finish_batch``
-runs the fused transform on the device and returns the batch dict the
-classifiers and steps consume ({spec, image, label, idx, valid}).
+runs the fused transform on the device, drawing from the batch's
+generator where it draws (``utils.seed.batch_generator``), and returns the
+batch dict the classifiers and steps consume ({spec | token,
+padding_mask; image, label, idx, valid}).
 
-Ported: the CREMA-D audio-visual adapter (``--lorb base``). The others
-raise in ``build_adapter`` with the ROADMAP item that brings them.
+Ported: the CREMA-D audio-visual adapter (``--lorb base``), the M3AE
+image-text adapter (``--lorb m3ae``: Food-101, MVSA) and the MVSA
+text-visual adapter of the other families. The IEMOCAP 3-modal and the CLIP
+feature adapters raise in ``build_adapter`` with the ROADMAP item that
+brings them.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -160,11 +165,13 @@ class AVAdapter:
                 "label": np.asarray([self.index.labels[i] for i in indices]),
                 "idx": np.asarray(indices)}
 
-    def finish_batch(self, host: Dict[str, torch.Tensor]) -> Dict:
+    def finish_batch(self, host: Dict[str, torch.Tensor],
+                     gen: Optional[torch.Generator] = None) -> Dict:
         """``host``: the padded host batch's tensors, already on the device
         (uint8 frames (B, 3, H, W, 3), boxes, flip, spec, label, idx,
         valid) -> the model's batch: spec (B, 1, F, T) float32 and image
-        (B, 3, T, out, out) in the compute type (no color jitter)."""
+        (B, 3, T, out, out) in the compute type (no color jitter, so
+        ``gen`` is not drawn from)."""
         image = T.av_frames_transform(host["frames"], host["boxes"],
                                       host["flip"], out=self.out,
                                       out_dtype=_image_dtype(self.cfg))
@@ -175,21 +182,191 @@ class AVAdapter:
                 "valid": host["valid"].to(torch.float32)}
 
 
+class M3AEAdapter:
+    """Food-101 / MVSA image-text (dataset.py:327-480): cached BERT tokens +
+    jpg; train = timm create_transform(256, color_jitter) (RRC bicubic +
+    flip + jitter), eval = Resize(256) + CenterCrop(256)."""
+    out = 256
+
+    def __init__(self, cfg: MLAConfig, mode: str):
+        self.cfg = cfg
+        self.mode = mode
+        self.out = cfg.image_size or type(self).out
+        self.index = build_index(cfg.dataset, cfg.data_root, mode,
+                                 required=("text", "visual"))
+        self.canon = T.CANONICAL[self.out]
+
+    def __len__(self):
+        return len(self.index)
+
+    def _image_path(self, name):
+        return os.path.join(self.index.dir("visual"), name + ".jpg")
+
+    def sample_host(self, i: int, rng: np.random.Generator) -> Dict:
+        name = self.index.names[i]
+        tdir = self.index.dir("text")
+        token = np.load(os.path.join(tdir, name + "_token.npy")).reshape(-1)
+        pm = np.load(os.path.join(tdir, name + "_pm.npy")).reshape(-1)
+        img, hw = T.host_decode(self._image_path(name), self.canon)
+        if self.mode == "train":
+            box = im.random_resized_crop_params(rng, *hw)
+            flip = rng.random() < 0.5
+        else:
+            box = im.resize_center_crop_box(*hw, self.out, self.out)
+            flip = False
+        return {"token": token.astype(np.int32), "pm": pm.astype(np.float32),
+                "image_u8": img,
+                "boxes": np.asarray(T.scale_box(box, hw, self.canon),
+                                    np.float32),
+                "flip": flip, "label": self.index.labels[i], "idx": i}
+
+    def batch_host(self, indices, rngs, map_fn=map,
+                   keep_hw: bool = False) -> Dict:
+        """One host batch. Native path: token/pm npys (int32 / float32) and
+        JPEGs through the C++ thread pool, crop geometry sampled per sample
+        with the same generator stream as ``sample_host``. Without the
+        library: ``sample_host`` over ``map_fn``, as ``AVAdapter``. The TV
+        subclass extends it (``keep_hw``: the original sizes, host-only)."""
+        from mla_tpu_torch.data import native_loader as nl
+        if not nl.available():
+            _warn_native_fallback(type(self).__name__)
+            return stack_samples(list(map_fn(self.sample_host, indices,
+                                             rngs)))
+        names = [self.index.names[i] for i in indices]
+        tdir = self.index.dir("text")
+        if not hasattr(self, "_token_len"):
+            # fixture trees carry shorter token caches than the reference's
+            # 256: probe instead of hardcoding
+            self._token_len = int(np.load(os.path.join(
+                tdir, names[0] + "_token.npy")).size)
+        token = nl.load_npy_batch(
+            [os.path.join(tdir, n + "_token.npy") for n in names],
+            (self._token_len,), dtype=np.int32)
+        pm = nl.load_npy_batch(
+            [os.path.join(tdir, n + "_pm.npy") for n in names],
+            (self._token_len,))
+        imgs, hw = nl.decode_jpeg_batch([self._image_path(n) for n in names],
+                                        (self.canon, self.canon))
+        b = len(names)
+        boxes = np.zeros((b, 4), np.float32)
+        flips = np.zeros((b,), bool)
+        for i, rng in enumerate(rngs):
+            oh, ow = max(int(hw[i, 0]), 1), max(int(hw[i, 1]), 1)
+            if self.mode == "train":
+                box = im.random_resized_crop_params(rng, oh, ow)
+                flips[i] = rng.random() < 0.5
+            else:
+                box = im.resize_center_crop_box(oh, ow, self.out, self.out)
+            boxes[i] = T.scale_box(box, (oh, ow), self.canon)
+        out = {"token": token, "pm": pm, "image_u8": imgs, "boxes": boxes,
+               "flip": flips,
+               "label": np.asarray([self.index.labels[i] for i in indices]),
+               "idx": np.asarray(indices)}
+        if keep_hw:
+            out["_hw"] = hw
+        return out
+
+    def finish_batch(self, host: Dict[str, torch.Tensor],
+                     gen: Optional[torch.Generator] = None) -> Dict:
+        """The device batch: token (B, L) int32, padding_mask (B, L)
+        float32 and image (B, 3, out, out) in the compute type, resampled
+        with the cubic kernel and, in training, color-jittered from
+        ``gen``."""
+        image = T.image_batch_transform(
+            host["image_u8"], host["boxes"], host["flip"], gen,
+            im.IMAGENET_MEAN, im.IMAGENET_STD, out=self.out, method="cubic",
+            jitter=self.mode == "train", out_dtype=_image_dtype(self.cfg))
+        return {"token": host["token"].to(torch.int32),
+                "padding_mask": host["pm"].to(torch.float32),
+                "image": image,
+                "label": host["label"].to(torch.int32),
+                "idx": host["idx"].to(torch.int32),
+                "valid": host["valid"].to(torch.float32)}
+
+
+class TVAdapter(M3AEAdapter):
+    """MVSA text-visual for non-m3ae runs (dataset.py:482-592): BERT tokens
+    + the SAME image stacked 3x as pseudo-frames (dataset.py:559-574),
+    AVDataset transforms (224 crop). The reference pairs this dataset with
+    AVClassifier, which rejects MVSA (basic_model.py:20-26), so no run
+    reaches it; kept for parity of the adapter."""
+    out = 224
+
+    def sample_host(self, i: int, rng: np.random.Generator) -> Dict:
+        out = super().sample_host(i, rng)
+        # 3 copies of one image, each with the train-time transform geometry
+        if self.mode == "train":
+            img_path = self._image_path(self.index.names[i])
+            _, hw = T.host_decode(img_path, self.canon)
+            boxes, flips = [out["boxes"]], [out["flip"]]
+            for _ in range(2):
+                box = im.random_resized_crop_params(rng, *hw)
+                boxes.append(np.asarray(T.scale_box(box, hw, self.canon),
+                                        np.float32))
+                flips.append(rng.random() < 0.5)
+            out["boxes"] = np.stack(boxes)
+            out["flip"] = np.asarray(flips, bool)
+        else:
+            out["boxes"] = np.stack([out["boxes"]] * 3)
+            out["flip"] = np.asarray([False] * 3)
+        out["frames"] = np.stack([out.pop("image_u8")] * 3)
+        return out
+
+    def batch_host(self, indices, rngs, map_fn=map) -> Dict:
+        """Native path: tokens/pm/JPEG through the parent (same per-sample
+        generator order, box 1 and flip 1 first), then the two extra
+        train-time crop draws and the 3x pseudo-frame stack."""
+        hb = super().batch_host(indices, rngs, map_fn, keep_hw=True)
+        if "frames" in hb:          # the parent took sample_host
+            return hb
+        b = len(indices)
+        hws = hb.pop("_hw")
+        if self.mode == "train":
+            boxes = np.zeros((b, 3, 4), np.float32)
+            flips = np.zeros((b, 3), bool)
+            boxes[:, 0] = hb["boxes"]
+            flips[:, 0] = hb["flip"]
+            for i, rng in enumerate(rngs):
+                hw = (max(int(hws[i, 0]), 1), max(int(hws[i, 1]), 1))
+                for k in (1, 2):
+                    box = im.random_resized_crop_params(rng, *hw)
+                    boxes[i, k] = T.scale_box(box, hw, self.canon)
+                    flips[i, k] = rng.random() < 0.5
+            hb["boxes"], hb["flip"] = boxes, flips
+        else:
+            hb["boxes"] = np.stack([hb["boxes"]] * 3, axis=1)
+            hb["flip"] = np.zeros((b, 3), bool)
+        hb["frames"] = np.stack([hb.pop("image_u8")] * 3, axis=1)
+        return hb
+
+    def finish_batch(self, host: Dict[str, torch.Tensor],
+                     gen: Optional[torch.Generator] = None) -> Dict:
+        image = T.av_frames_transform(host["frames"], host["boxes"],
+                                      host["flip"], gen, out=self.out,
+                                      out_dtype=_image_dtype(self.cfg))
+        return {"token": host["token"].to(torch.int32),
+                "padding_mask": host["pm"].to(torch.float32),
+                "image": image,
+                "label": host["label"].to(torch.int32),
+                "idx": host["idx"].to(torch.int32),
+                "valid": host["valid"].to(torch.float32)}
+
+
 def build_adapter(cfg: MLAConfig, mode: str):
-    """Dataset selection mirroring main.py:762-810. Only the CREMA-D
-    audio-visual adapter is ported."""
+    """Dataset selection mirroring main.py:762-810. The IEMOCAP 3-modal and
+    the CLIP feature adapters raise with their ROADMAP item."""
     if cfg.modal3 or cfg.dataset == "IEMOCAP":
         raise NotImplementedError("the IEMOCAP 3-modal adapter is not ported "
                                   "yet: ROADMAP queue A, item 8")
     if cfg.clip:
         raise NotImplementedError("the CLIP feature adapter is not ported "
-                                  "yet: ROADMAP queue A, item 7b")
+                                  "yet: ROADMAP queue A, item 8")
     if cfg.lorb == "large":
         raise NotImplementedError("the CAV-MAE fbank adapter (--lorb large) "
                                   "is not ported yet: ROADMAP queue A, "
                                   "item 8")
-    if cfg.lorb == "m3ae" or cfg.dataset == "MVSA":
-        raise NotImplementedError("the M3AE image-text adapters (Food-101, "
-                                  "MVSA) are not ported yet: ROADMAP queue "
-                                  "A, item 7b")
+    if cfg.lorb == "m3ae":
+        return M3AEAdapter(cfg, mode)
+    if cfg.dataset == "MVSA":
+        return TVAdapter(cfg, mode)   # main.py:770-772
     return AVAdapter(cfg, mode)

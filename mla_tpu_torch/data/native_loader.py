@@ -45,26 +45,31 @@ def _warn_once(tag: str, msg: str) -> None:
         warnings.warn(msg, stacklevel=3)
 
 
-def library_path() -> Path:
-    flags = " ".join(CXX_FLAGS + LINK_FLAGS).encode()
-    digest = hashlib.sha256(SOURCE.read_bytes() + flags).hexdigest()[:16]
-    return build_dir() / f"libmla_native-{digest}.so"
+def library_path(source: Path = SOURCE, link=LINK_FLAGS) -> Path:
+    """``build/mla_tpu_torch/lib<stem>-<hash of source and flags>.so`` for
+    a C++ source of ``native/`` (its stem without a ``lib`` prefix)."""
+    flags = " ".join(CXX_FLAGS + tuple(link)).encode()
+    digest = hashlib.sha256(source.read_bytes() + flags).hexdigest()[:16]
+    stem = source.stem if source.stem.startswith("lib") else \
+        "lib" + source.stem
+    return build_dir() / f"{stem}-{digest}.so"
 
 
-def build() -> Path:
-    """Compile the library unless it exists; raises on failure."""
-    out = library_path()
+def build(source: Path = SOURCE, link=LINK_FLAGS) -> Path:
+    """Compile ``source`` with ``native/Makefile``'s flags unless its
+    library exists; raises on failure."""
+    out = library_path(source, link)
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
-    proc = subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, str(SOURCE),
-                           *LINK_FLAGS], capture_output=True, text=True,
+    proc = subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, str(source),
+                           *link], capture_output=True, text=True,
                           timeout=300)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"g++ failed for {SOURCE.name}:\n"
+        raise RuntimeError(f"g++ failed for {source.name}:\n"
                            f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)     # concurrent builds never share a file
     return out

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from mla_tpu_torch.device import resolve_device
+from mla_tpu_torch.utils.seed import batch_generator
 
 
 def pad_rows(hb: Dict[str, np.ndarray], n_real: int, width: int,
@@ -138,6 +139,7 @@ class Loader:
 
         t = threading.Thread(target=producer, daemon=True)
         t.start()
+        step = 0
         try:
             while True:
                 hb = q.get()
@@ -147,9 +149,13 @@ class Loader:
                     return
                 batch = {k: v.to(self.device, non_blocking=True)
                          for k, v in hb.items()}
+                # the batch's device draws (the JAX loader's key
+                # fold_in(fold_in(key(seed), epoch), step))
+                gen = batch_generator(self.seed, epoch, step, self.device)
                 with torch.profiler.record_function("mla.transform"):
-                    batch = self.adapter.finish_batch(batch)
+                    batch = self.adapter.finish_batch(batch, gen)
                 yield batch
+                step += 1
         finally:
             stop.set()
             t.join(timeout=5.0)

@@ -66,13 +66,15 @@ class M3AEClassifier(nn.Module):
     def __init__(self, n_classes: int = 101, fusion_method: str = "concat",
                  gs_flag: bool = False, qmf: bool = False,
                  model_type: str = "base", text_vocab_size: int = 30522,
-                 q8: Optional[str] = None):
+                 q8: Optional[str] = None, remat: Optional[str] = None):
         super().__init__()
         self.gs_flag = gs_flag
         self.qmf = qmf
         cfg = M3AEConfig(model_type=model_type, text_vocab_size=text_vocab_size)
-        self.mae_a = M3AEEncoder(cfg, q8)
-        self.mae_v = M3AEEncoder(cfg, q8)
+        # remat: each encoder block checkpointed under --remat_blocks
+        # ('full' or 'dots', --remat_policy; models/m3ae.py)
+        self.mae_a = M3AEEncoder(cfg, q8, remat)
+        self.mae_v = M3AEEncoder(cfg, q8, remat)
         if qmf:
             # per-modality QMF heads (the JAX package's _qmf_head with torch
             # nn.Linear's default init, classifiers.py:227-232). The QMF
@@ -224,7 +226,8 @@ def classifier_kwargs(cfg: MLAConfig) -> dict:
         return dict(kw, masked_bn=cfg.masked_bn,
                     stages=tuple(cfg.resnet_stages),
                     pallas_conv=resolve_pallas_conv(cfg))
-    return dict(kw, model_type=cfg.m3ae_size)
+    return dict(kw, model_type=cfg.m3ae_size,
+                remat=cfg.remat_policy if cfg.remat_blocks else None)
 
 
 def make_classifier(cfg: MLAConfig, text_vocab_size: int = 30522,

@@ -240,6 +240,82 @@ class M3AEBlock(nn.Module):
                                q8w)
         return x + self.transformer_mlp(layer_norm(self.layer_norm2, x), q8w)
 
+    def forward_remat_dots(self, x, padding_mask=None):
+        """``forward`` of a float block under JAX's
+        ``dots_with_no_batch_dims_saveable`` remat (``_DotsRemat``)."""
+        return _DotsRemat.apply(self, x, padding_mask, *self.parameters())
+
+    def _dots_pass(self, x, padding_mask, kept=None):
+        """The float block, op for op as ``forward``, with its GEMM products
+        named: (qkv, proj, fc1, h = x + proj, fc2). With ``kept`` (qkv,
+        proj, fc1 of an earlier pass) no GEMM runs: each returns its kept
+        product (fc2 one of the right shape, which nothing reads) and
+        takes addmm's backward (``_KeptProduct``)."""
+        att, mlp = self.attention, self.transformer_mlp
+        it = None if kept is None else iter(kept)
+
+        def gemm(lin, h):
+            if it is None:
+                return linear(lin, h)
+            dt = h.dtype
+            return _KeptProduct.apply(h, lin.weight.to(dt), lin.bias.to(dt),
+                                      next(it, None))
+
+        qkv = gemm(att.qkv_linear, layer_norm(self.layer_norm1, x))
+        proj = gemm(att.fc, fused_attention_qkv(qkv, padding_mask,
+                                                att.num_heads))
+        h = x + proj
+        f1 = gemm(mlp.fc1, layer_norm(self.layer_norm2, h))
+        return qkv, proj, f1, h, gemm(mlp.fc2, F.gelu(f1, approximate="none"))
+
+
+class _KeptProduct(torch.autograd.Function):
+    """``F.linear(x, w, b)`` whose product was kept: the forward returns
+    ``out`` (an empty one when None), the backward is ``addmm``'s on the
+    flattened rows op for op (``mm_mat1_backward``, ``mm_mat2_backward``,
+    the bias's ``sum_to``), so its gradients equal the plain op's bit for
+    bit."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, out):
+        ctx.save_for_backward(x, w)
+        return out if out is not None else \
+            x.new_empty(x.shape[:-1] + (w.shape[0],))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        return (g2.mm(w).view(x.shape),
+                g2.t().mm(x.reshape(-1, x.shape[-1])), g2.sum(0), None)
+
+
+class _DotsRemat(torch.autograd.Function):
+    """A float ``M3AEBlock`` under JAX's ``dots_with_no_batch_dims_saveable``
+    remat, by hand: the forward runs the block without recording and keeps
+    its input and the qkv, proj and fc1 products (fc2's feeds only the
+    residual add, whose backward needs nothing); the backward recomputes
+    LayerNorm, the attention (its kernel launched again) and GELU around
+    the kept products, and differentiates that pass. No GEMM reruns, and
+    the gradients equal the block's without remat bit for bit."""
+
+    @staticmethod
+    def forward(ctx, blk, x, padding_mask, *params):
+        qkv, proj, f1, h, f2 = blk._dots_pass(x, padding_mask)
+        ctx.blk = blk
+        ctx.save_for_backward(x, padding_mask, qkv, proj, f1)
+        return h + f2
+
+    @staticmethod
+    def backward(ctx, g):
+        x, padding_mask, *kept = ctx.saved_tensors
+        params = tuple(ctx.blk.parameters())
+        with torch.enable_grad():
+            x = x.detach().requires_grad_()
+            *_, h, f2 = ctx.blk._dots_pass(x, padding_mask, kept)
+            grads = torch.autograd.grad((h, f2), (x,) + params, (g, g))
+        return (None, grads[0], None) + grads[1:]
+
 
 # an encoder block's int8 sites: port module path in the block -> (the
 # stacked layout's site, the JAX package's site name)

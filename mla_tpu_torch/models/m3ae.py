@@ -18,6 +18,18 @@ type, casting each parameter per op (``layers.linear``). The compute type is
 ``compute_dtype`` when set (training: fp32 master weights, bf16 compute),
 else the weights' type (serving casts the weights themselves).
 
+Block remat (``--remat_blocks``, ``mla_tpu/models/m3ae.py:134-137``):
+with ``remat`` set, wherever a gradient is recorded each block's
+activations are recomputed in the backward instead of kept.
+``remat="full"`` runs the block under ``torch.utils.checkpoint``
+(non-reentrant), keeping only its input; ``"dots"`` (JAX's
+``dots_with_no_batch_dims_saveable``, ``M3AEBlock.forward_remat_dots``,
+one autograd Function a block) recomputes LayerNorm, GELU and the
+attention but none of the four GEMMs (qkv, proj, fc1, fc2). Either way
+the attention's recomputation relaunches its kernel through
+``FlatAttention``: a block's forward runs twice per step. The blocks stay
+unrolled (the JAX package scans them; the math is the same).
+
 int8 serving (``q8`` = "unrolled" or "stacked", ``mla_tpu/models/m3ae.py:
 197-300``): the image-patch projection is an int8 site through B4 (weight
 only, then ``+ bias`` in the compute type and ``+ pos`` in fp32), the text
@@ -35,6 +47,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from mla_tpu_torch.models.layers import (M3AEBlock, Q8Linear, Stacked,
                                          layer_norm, q8_product,
@@ -141,10 +154,25 @@ class _Transformer(nn.Module):
         self.stack = Q8Stack(c) if q8 == "stacked" else None
 
 
+REMAT_POLICIES = ("full", "dots")
+
+
+def _remat_block(blk, x, padding_mask, policy: str):
+    """``blk(x, padding_mask)`` under remat ``policy`` ('full' or
+    'dots')."""
+    if policy == "full":
+        return ckpt.checkpoint(blk, x, padding_mask, use_reentrant=False)
+    return blk.forward_remat_dots(x, padding_mask)
+
+
 class M3AEEncoder(nn.Module):
     def __init__(self, config: M3AEConfig = M3AEConfig(),
-                 q8: Optional[str] = None):
+                 q8: Optional[str] = None, remat: Optional[str] = None):
         super().__init__()
+        if remat not in (None,) + REMAT_POLICIES:
+            raise ValueError(f"remat must be None, 'full' or 'dots', got "
+                             f"{remat!r}")
+        self.remat = remat
         c = self.config = config
         if q8 is None:
             self.text_embedding = nn.Embedding(c.text_vocab_size, c.emb_dim)
@@ -197,8 +225,13 @@ class M3AEEncoder(nn.Module):
         returns (B, 1 + N_img + L, emb_dim) token features."""
         x, padding_mask = self.embed(image, text, text_padding_mask)
         stack = self.encoder.stack
+        remat = self.remat if torch.is_grad_enabled() else None
         for i, blk in enumerate(self.encoder.blocks):
-            x = blk(x, padding_mask, None if stack is None else stack.layer(i))
+            if remat is not None:
+                x = _remat_block(blk, x, padding_mask, remat)
+            else:
+                x = blk(x, padding_mask,
+                        None if stack is None else stack.layer(i))
         return self.finalize(x)
 
     def embed(self, image, text, text_padding_mask=None):

@@ -6,8 +6,9 @@ The host decodes JPEGs to uint8 HWC and samples crop boxes and flips with
 numpy generators keyed by (seed, epoch, sample), so both packages draw the
 same boxes; the device does the pixel math for a whole batch at once.
 
-The resize is ``jax.image.scale_and_translate`` with the triangle kernel and
-``antialias=True`` over a fractional box per sample, which none of torch's
+The resize is ``jax.image.scale_and_translate`` with ``antialias=True`` over
+a fractional box per sample, with the triangle kernel ('linear', the AV
+frames) or the Keys cubic ('cubic', the M3AE images), which none of torch's
 resizes computes (``F.interpolate`` neither widens the kernel when it scales
 down nor normalises it the same way). ``resample_matrix`` builds each
 sample's (out, in) weights by JAX's rule (``compute_weight_mat`` in
@@ -86,13 +87,29 @@ def resize_center_crop_box(height: int, width: int, resize_short: int,
 # Device-side resample
 # ---------------------------------------------------------------------------
 
+def triangle_kernel(x: torch.Tensor) -> torch.Tensor:
+    """JAX's ``_fill_triangle_kernel``: max(0, 1 - |x|)."""
+    return torch.clamp(1.0 - torch.abs(x), min=0.0)
+
+
+def keys_cubic_kernel(x: torch.Tensor) -> torch.Tensor:
+    """JAX's ``_fill_keys_cubic_kernel`` (Keys, a = -0.5, support 2) on
+    x >= 0, in its Horner form and order of operations."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(out), out)
+
+
+KERNELS = {"linear": triangle_kernel, "cubic": keys_cubic_kernel}
+
+
 def resample_matrix(start: torch.Tensor, length: torch.Tensor, out_size: int,
-                    in_size: int) -> torch.Tensor:
+                    in_size: int, kernel=triangle_kernel) -> torch.Tensor:
     """(B, out_size, in_size) float32 weights that resample the window
     [start, start + length) of an axis of ``in_size`` pixels to ``out_size``
-    pixels, one row per output pixel: JAX's ``compute_weight_mat`` for the
-    triangle kernel with antialias, at scale out/length and translation
-    -start*out/length, in float32.
+    pixels, one row per output pixel: JAX's ``compute_weight_mat`` for
+    ``kernel`` (``KERNELS``) with antialias, at scale out/length and
+    translation -start*out/length, in float32.
 
     The sample positions round as the JAX package's compiled transform
     rounds them: XLA folds 1/scale into length * (1/out) and fuses the
@@ -111,8 +128,7 @@ def resample_matrix(start: torch.Tensor, length: torch.Tensor, out_size: int,
     # fma(o + 0.5, inv, -(translation * inv)): the float64 product is exact
     sample_f = ((out_pos + 0.5).double() * inv_scale.double()
                 - (translation * inv_scale).double()).float() - 0.5
-    weights = torch.clamp(1.0 - torch.abs(sample_f - in_pos) / kernel_scale,
-                          min=0.0)
+    weights = kernel(torch.abs(sample_f - in_pos) / kernel_scale)
     total = torch.sum(weights, dim=-1, keepdim=True)
     weights = torch.where(
         torch.abs(total) > 1000.0 * _EPS_F32,
@@ -124,25 +140,30 @@ def resample_matrix(start: torch.Tensor, length: torch.Tensor, out_size: int,
 
 
 def crop_resize(x: torch.Tensor, boxes: torch.Tensor,
-                out_hw: Tuple[int, int]) -> torch.Tensor:
+                out_hw: Tuple[int, int], method: str = "linear"
+                ) -> torch.Tensor:
     """x: (B, C, H, W) float32; boxes: (B, 4) float (i, j, h, w) in pixels
     -> (B, C, oh, ow) float32: each sample's box resampled to out_hw (the
-    JAX package's ``_crop_resize_one`` with method 'linear', per sample)."""
+    JAX package's ``_crop_resize_one`` with ``method``, 'linear' or
+    'cubic', per sample)."""
+    if method not in KERNELS:
+        raise NotImplementedError(
+            f"resize method {method!r}: the port has {sorted(KERNELS)}, the "
+            "kernels every dataset uses")
+    kernel = KERNELS[method]
     oh, ow = out_hw
-    wh = resample_matrix(boxes[:, 0], boxes[:, 2], oh, x.shape[2])
-    ww = resample_matrix(boxes[:, 1], boxes[:, 3], ow, x.shape[3])
+    wh = resample_matrix(boxes[:, 0], boxes[:, 2], oh, x.shape[2], kernel)
+    ww = resample_matrix(boxes[:, 1], boxes[:, 3], ow, x.shape[3], kernel)
     y = torch.matmul(wh[:, None], x)                    # (B, C, oh, W)
     return torch.matmul(y, ww.transpose(1, 2)[:, None])  # (B, C, oh, ow)
 
 
 def crop_resize_unit(images_u8, boxes, out_hw, method):
-    """uint8 (B, H, W, C) -> (B, C, oh, ow) float32 in [0, 1], resampled."""
-    if method != "linear":
-        raise NotImplementedError(
-            f"resize method {method!r}: only 'linear' (the triangle kernel "
-            "every dataset uses) is ported")
+    """uint8 (B, H, W, C) -> (B, C, oh, ow) float32 in [0, 1], resampled
+    and clipped (the cubic kernel's negative lobes overshoot the range)."""
     x = images_u8.permute(0, 3, 1, 2).to(torch.float32) / 255.0
-    return torch.clamp(crop_resize(x, boxes.to(x.device), out_hw), 0.0, 1.0)
+    return torch.clamp(crop_resize(x, boxes.to(x.device), out_hw, method),
+                       0.0, 1.0)
 
 
 def crop_resize_normalize(images_u8: torch.Tensor, boxes: torch.Tensor,

@@ -50,11 +50,7 @@ _NOT_PORTED = (
     (lambda c: c.pp_remat, "--pp_remat", "9"),
     (lambda c: c.dist_coordinator or c.dist_num_processes != 1
      or c.dist_process_id != 0, "--dist_*", "9"),
-    (lambda c: c.remat_blocks, "--remat_blocks", "7b"),
     (lambda c: c.cav_augnois, "--cav_augnois", "8"),
-    (lambda c: c.lorb != "base" and (c.pretrained_a or c.pretrained_v
-                                     or c.pretrained_t),
-     "--pretrained_a/v/t", "7b"),
 )
 # flags that name JAX mechanisms: accepted, and said to be ignored
 _JAX_ONLY = (("scan_unroll", 1), ("compile_cache", ""))
@@ -125,7 +121,11 @@ def _export_serving(cfg: MLAConfig, state, sample: Dict) -> str:
     attn_lib.set_flat_attention(True)
     sizes = tuple(cfg.export_batch_sizes) if cfg.export_batch_sizes else \
         (1, 8, cfg.batch_size)
-    example = {k: sample[k].float().cpu().numpy()
+    # floating features at the boundary's float32 (a bf16 image included);
+    # the others (M3AE's int32 tokens) keep their type, as in the JAX
+    # package's export_from_driver
+    example = {k: (sample[k].float() if sample[k].is_floating_point()
+                   else sample[k]).cpu().numpy()
                for k in feature_keys(state.model)}
     path = export_serving(cfg, state.model, cfg.export_dir,
                           batch_sizes=sizes, weights_dtype=cfg.export_dtype,
@@ -186,6 +186,9 @@ def _run(cfg: MLAConfig, max_steps_per_epoch: Optional[int],
                                seed=cfg.random_seed, device=dev)
     # cav_opti lr groups need the parameter names (main.py:739-746)
     spec = optim.make_spec(cfg, state.params)
+    if cfg.pretrained_a or cfg.pretrained_v or cfg.pretrained_t:
+        from mla_tpu_torch.models.torch_import import load_pretrained_encoders
+        load_pretrained_encoders(cfg, state.model)
     if cfg.ckpt_load_path_train:
         ckpt_lib.warm_start_params(cfg.ckpt_load_path_train, state.model)
         print("Trained model loaded!")

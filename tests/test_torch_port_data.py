@@ -344,13 +344,16 @@ def test_loader_raises_producer_errors(cremad_root):
 
 
 def test_only_the_av_adapter_is_ported(cremad_root):
+    """Of the audio-visual and feature adapters only the CREMA-D AV one is
+    ported: the CLIP, CAV-MAE and IEMOCAP 3-modal adapters raise naming
+    ROADMAP item 8 (the image-text adapters are ported and held in
+    tests/test_torch_port_m3ae_data.py)."""
     from mla_tpu_torch.core.config import MLAConfig
     from mla_tpu_torch.data import datasets
 
     assert isinstance(datasets.build_adapter(_cfgs(cremad_root)[1], "train"),
                       datasets.AVAdapter)
-    for kw, item in ((dict(dataset="MVSA", lorb="m3ae"), "7b"),
-                     (dict(dataset="Food101", lorb="base", clip=True), "7b"),
+    for kw, item in ((dict(dataset="Food101", lorb="base", clip=True), "8"),
                      (dict(lorb="large"), "8"),
                      (dict(dataset="IEMOCAP", lorb="m3ae", modal3=True), "8")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):

@@ -447,7 +447,8 @@ def test_tensorboard_profile_and_flag_checks(tiny_cremad, tmp_path, capsys):
                      (dict(pp_microbatches=2, scan_blocks=True), "9"),
                      (dict(cav_augnois=True), "8"),
                      (dict(lorb="large"), "8"),
-                     (dict(lorb="m3ae", dataset="Food101"), "7b")):
+                     (dict(clip=True), "8"),
+                     (dict(lorb="m3ae", dataset="IEMOCAP", modal3=True), "8")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             run(cfg.replace(**kw), device="cpu")
 
