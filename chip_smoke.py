@@ -162,6 +162,36 @@ result line:
               loader alone, the transform's time per batch and the
               transform on the card against the CPU at the full batch with
               the jitter's factors fed (max abs <= 5e-5).
+13. families driver — the JAX package's other three classifier families
+              through the same CLI and driver, at full width from seeded
+              synthetic trees of 192 + 64 samples, B=64, bf16 compute,
+              fp32 master weights: CLIP (Food-101, --clip --gs_flag, 512-d
+              feature npys; no kernel, so B1f must read 0); CAV-MAE
+              (CREMA-D, --lorb large --gs_flag --cav_augnois, 1024 x 128
+              fbanks and 360x480 frames; 11 + 1 blocks, 512 audio and 196
+              visual tokens, no padding mask): 2 epochs with --save_last,
+              eval-only from the best checkpoint with --export_dir (the
+              best epoch's accuracy and logits, bit for bit; one request
+              served against the eval model, relative L2 <= 3e-2), bf16,
+              int8 and int8_a8 artifacts (96 B4 a dispatch; fused logits
+              at n=64 against the bf16 artifact's within phase 8's limits),
+              --resume from `last`, one --cav_opti --cav_lrs epoch, the
+              MLA run again traced (epoch 1's split), and the fbank
+              transform's ms a batch and card-vs-CPU error with its draws
+              fed (<= 5e-5); the IEMOCAP 3-modal classifier (--lorb m3ae
+              --modal3 --gs_flag -dynamic, CAV-MAE audio beside base M3AE
+              image and text): 2 epochs, eval-only with --export_dir and a
+              served request, --scan_blocks int8 and int8_a8 artifacts (B4
+              49, B5 48, B6 24 a dispatch), one QMF epoch under
+              --mask_percent 0.5, the MLA run traced; then one fp32 B=2
+              MLA step of CAV-MAE and of the 3-modal classifier on the
+              card against the CPU (momentum relative L2 <= 1e-3). Every
+              train step must launch B1f/B1b 24 + 24 (CAV-MAE) or 36 + 36
+              (3-modal) times and every eval batch B1f 24 or 36 times,
+              read just before and just after each call; B2f/B2b, the
+              plain attention and SDPA never. Phase 3's attention rows
+              include CAV-MAE's calls: B=64, H=12, D=64 at S=512 and
+              S=196 with no mask, bf16 and fp32.
 
 Phase 3 also holds the int8 kernels against their plain versions: B4 and
 B5 (weight-only and W8A8) at the four block sites of the base width (qkv
@@ -465,7 +495,10 @@ def text_mask(rng, b, s):
 
 
 def attention_case(b, s, h, d, dtype, fully_masked_row=False, seed=0,
-                   reps=20):
+                   reps=20, no_mask=False):
+    """B1f against its plain version; ``no_mask``: no padding mask (the
+    CAV-MAE blocks' call), the kernel reading the zeros its wrapper
+    allocates, SDPA called without a mask."""
     from mla_tpu_torch.ops.attention import (flash_attention_flat,
                                              flat_attention_reference)
     rng = np.random.default_rng(seed)
@@ -475,7 +508,7 @@ def attention_case(b, s, h, d, dtype, fully_masked_row=False, seed=0,
     mask_np = text_mask(rng, b, s)
     if fully_masked_row:
         mask_np[-1, :] = 1.0
-    mask = torch.from_numpy(mask_np).cuda()
+    mask = None if no_mask else torch.from_numpy(mask_np).cuda()
     got = flash_attention_flat(qkv, mask, h)
     torch.cuda.synchronize()
     # no atomics: a second call gives the same bits
@@ -492,14 +525,17 @@ def attention_case(b, s, h, d, dtype, fully_masked_row=False, seed=0,
                                         v_mean.expand(s, c),
                                         atol=atol, rtol=rtol))
     es = qkv.element_size()
-    nbytes = b * s * 3 * c * es + b * s * 4 + b * s * c * es
+    # the function reads no mask when it has none
+    nbytes = b * s * 3 * c * es + (0 if no_mask else b * s * 4) \
+        + b * s * c * es
     flops = 4 * b * h * s * s * d
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     q, k, v = (qkv[..., i * c:(i + 1) * c].view(b, s, h, d).transpose(1, 2)
                for i in range(3))
-    bias = (mask * -1e7).to(dtype)[:, None, None, :]
+    bias = None if no_mask else (mask * -1e7).to(dtype)[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     row = {"shape": [b, s, h, d], "dtype": str(dtype).replace("torch.", ""),
+           "no_mask": no_mask,
            "fully_masked_row": fully_masked_row, "max_abs_err": err,
            "atol": atol, "rtol": rtol, "repeat_bitwise": repeat_bitwise,
            "ok": ok,
@@ -517,7 +553,7 @@ def attention_case(b, s, h, d, dtype, fully_masked_row=False, seed=0,
 
 
 def attention_bwd_case(b, s, h, d, dtype, fully_masked_row=False, seed=0,
-                       reps=10):
+                       reps=10, no_mask=False):
     from mla_tpu_torch.ops.attention import (flash_attention_flat,
                                              flash_attention_flat_bwd,
                                              flat_attention_bwd_reference)
@@ -530,7 +566,7 @@ def attention_bwd_case(b, s, h, d, dtype, fully_masked_row=False, seed=0,
     mask_np = text_mask(rng, b, s)
     if fully_masked_row:
         mask_np[-1, :] = 1.0
-    mask = torch.from_numpy(mask_np).cuda()
+    mask = None if no_mask else torch.from_numpy(mask_np).cuda()
     got = flash_attention_flat_bwd(qkv, do, mask, h)
     torch.cuda.synchronize()
     # no atomics: a second call gives the same bits
@@ -549,18 +585,20 @@ def attention_bwd_case(b, s, h, d, dtype, fully_masked_row=False, seed=0,
                            atol=atol, rtol=rtol))
     es = qkv.element_size()
     # qkv and dO read once, the mask read once, d(qkv) written once
-    nbytes = 2 * b * s * 3 * c * es + b * s * c * es + b * s * 4
+    nbytes = 2 * b * s * 3 * c * es + b * s * c * es \
+        + (0 if no_mask else b * s * 4)
     # recomputed scores, dp, dq, dk, dv: five (S, S, D) products per head
     flops = 10 * b * h * s * s * d
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     q, k, v = (qkv[..., i * c:(i + 1) * c].view(b, s, h, d).transpose(1, 2)
                for i in range(3))
     g = do.view(b, s, h, d).transpose(1, 2)
-    bias = (mask * -1e7).to(dtype)[:, None, None, :]
+    bias = None if no_mask else (mask * -1e7).to(dtype)[:, None, None, :]
 
     library_ms, library_fwd_bwd_ms, library_device_ms = time_sdpa_bwd(
         q, k, v, g, bias, reps)
     row = {"shape": [b, s, h, d], "dtype": str(dtype).replace("torch.", ""),
+           "no_mask": no_mask,
            "fully_masked_row": fully_masked_row, "max_abs_err": err,
            "atol": atol, "rtol": rtol, "repeat_bitwise": repeat_bitwise,
            "ok": ok,
@@ -712,6 +750,11 @@ def phase_kernels():
                 out.append(case(b, 257, 12, 64, dtype, seed=b))
             out.append(case(8, 257, 16, 80, dtype, seed=80))   # huge
             out.append(case(2, 9, 4, 16, dtype, True, seed=9))
+            # CAV-MAE's blocks (phase 13): 512 audio tokens (1024 fbank
+            # frames x 128 mel bins, 16x16 patches) and 196 visual ones
+            # (224^2), no padding mask
+            for s in (512, 196):
+                out.append(case(64, s, 12, 64, dtype, seed=s, no_mask=True))
     bad = [r for r in rows if not r["ok"]]
     check(not bad, f"flat attention kernel disagrees with its plain "
                    f"version: {bad}")
@@ -3242,6 +3285,460 @@ def phase_m3ae_driver(work: Path):
     return out
 
 
+# ---------------------------------------------------------------- phase 13
+
+FAM_TRAIN, FAM_TEST = 192, 64          # 3 steps + 1 eval batch an epoch
+FAM_BATCH = 64
+FAM_AUDIO = 1024                       # CAV-MAE's fbank frames
+FAM_CAV_BLOCKS = (11, 12)              # CAV-MAE base: 11 + 1 blocks
+FAM_M3AE = "base"                      # the 3-modal family's M3AE encoders
+FAM_TOKENS = 256                       # the reference's token caches
+FAM_FRAME_HW = (360, 480)              # CREMA-D's / IEMOCAP's video frames
+FAM_IMAGE = None                       # --image_size: None keeps 224 / 256
+
+
+def family_argv(family: str, root: Path, ckpt: Path, *extra,
+                gs: bool = True) -> list:
+    """A user's command line of the port's CLI for one of the families of
+    phase 13 (B=64, bf16 compute, full width): CLIP (Food-101, --clip),
+    CAV-MAE (CREMA-D, --lorb large --cav_augnois) and the IEMOCAP 3-modal
+    classifier (--lorb m3ae --modal3 -dynamic); MLA (--gs_flag) unless
+    ``gs`` is off."""
+    cav = ["--audio_length", str(FAM_AUDIO), "--cav_blocks",
+           "%d,%d" % FAM_CAV_BLOCKS]
+    fam = {"clip": ["--dataset", "Food101", "--clip"],
+           "cav": ["--dataset", "CREMAD", "--lorb", "large", "--cav_augnois",
+                   *cav],
+           "modal3": ["--dataset", "IEMOCAP", "--lorb", "m3ae", "--modal3",
+                      "-dynamic", "--m3ae_size", FAM_M3AE, *cav]}[family]
+    size = [] if FAM_IMAGE is None else ["--image_size", str(FAM_IMAGE)]
+    return ["--device", "cuda", "--train", *fam,
+            *(["--gs_flag"] if gs else []), "--batch_size", str(FAM_BATCH),
+            "--compute_dtype", "bfloat16", "--epochs", str(DRIVER_EPOCHS),
+            "--data_root", str(root), "--ckpt_path", str(ckpt),
+            "--num_workers", str(DRIVER_WORKERS), "--no-use_tensorboard",
+            *size, *extra]
+
+
+def family_blocks() -> dict:
+    """Attention blocks a forward of each family's encoders runs."""
+    from mla_tpu_torch.models.m3ae import M3AE_CONFIGS
+    cav, m3ae = FAM_CAV_BLOCKS[1], M3AE_CONFIGS[FAM_M3AE][1]
+    return {"clip": 0, "cav": 2 * cav, "modal3": cav + 2 * m3ae}
+
+
+def family_epoch_line(res, epoch=1):
+    h = next(x for x in res["history"] if x["epoch"] == epoch)
+    return {"loss": h["loss"], "acc": h["acc"], "train_s": h["train_s"],
+            "wall_s": h["wall_s"],
+            "train_samples_per_s": FAM_TRAIN / h["train_s"],
+            "epoch_samples_per_s": (FAM_TRAIN + FAM_TEST) / h["wall_s"]}
+
+
+def family_request(family: str, rng, n: int) -> dict:
+    """Serving features of one family at the reference shapes."""
+    if family == "clip":
+        return {k: rng.standard_normal((n, 512)).astype(np.float32)
+                for k in ("token_feat", "image_feat")}
+    side = FAM_IMAGE or (224 if family == "cav" else 256)
+    out = {"fbank": rng.normal(-5.0, 4.0, (n, FAM_AUDIO, 128)).astype(
+        np.float32),
+        "image": rng.standard_normal((n, 3, side, side)).astype(np.float32)}
+    if family == "modal3":
+        out.update({k: v for k, v in request(rng, n, FAM_TOKENS, side).items()
+                    if k in ("token", "padding_mask")})
+    return out
+
+
+def family_batch(family: str, rng, n: int, device) -> dict:
+    rows = {**family_request(family, rng, n),
+            "label": rng.integers(0, 6 if family == "cav" else 4, n),
+            "valid": np.ones(n, np.float32)}
+    return {k: torch.from_numpy(np.asarray(v)).to(device)
+            for k, v in rows.items()}
+
+
+def family_cpu_agreement(family: str, cfg):
+    """One fp32 MLA step at B=2 and full width on the card (kernels)
+    against the CPU (plain versions), from the same weights and batch
+    (phase 5's comparison; momentum relative L2 <= 1e-3)."""
+    from mla_tpu_torch.models.classifiers import build_classifier
+    from mla_tpu_torch.train import optim
+    from mla_tpu_torch.train.state import create_train_state
+    from mla_tpu_torch.train.steps import make_train_step
+
+    cfg = cfg.replace(batch_size=2, compute_dtype="float32")
+    n = family_blocks()[family]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = build_classifier(cfg, seed=1)
+        spec = optim.make_spec(cfg)
+        st = create_train_state(model, cfg, spec, seed=1, device=dev)
+        batch = family_batch(family, np.random.default_rng(7), 2, dev)
+        f0, b0 = launch_counts()
+        t = time.perf_counter()
+        st, met = make_train_step(model, cfg, spec, len_dl=1)(
+            st, batch, optim.lr_for_epoch(cfg, 0), 0)
+        met = {k: float(v) for k, v in met.items()}
+        f1, b1 = launch_counts()
+        check((f1 - f0, b1 - b0) == ((n, n) if dev == "cuda" else (0, 0)),
+              f"{family} fp32 step on {dev}: {f1 - f0} / {b1 - b0} launches")
+        out[dev] = ({k: p.detach().cpu() for k, p in st.params.items()},
+                    {k: m.cpu() for k, m in st.opt_state["momentum"].items()},
+                    met, time.perf_counter() - t)
+        del model, st
+    torch.cuda.empty_cache()
+    (pg, mg, lg, tg), (pc, mc, lc, tc) = out["cuda"], out["cpu"]
+    res = {"params_rel_l2": rel_l2(pg, pc), "momentum_rel_l2": rel_l2(mg, mc),
+           "loss_rel": {k: abs(lg[k] - lc[k]) / abs(lc[k]) for k in lc},
+           "step_s_card": tg, "step_s_cpu": tc}
+    print(f"[families] {family} fp32 MLA step B=2, card vs CPU: "
+          f"{json.dumps(res)}", flush=True)
+    check(res["params_rel_l2"] <= 1e-6 and res["momentum_rel_l2"] <= 1e-3
+          and max(res["loss_rel"].values()) <= 1e-4,
+          f"{family}: the card's fp32 step drifts from the CPU's: {res}")
+    return res
+
+
+def family_int8(family: str, cfg, model, work: Path, kinds) -> dict:
+    """bf16, int8 and int8_a8 artifacts of ``model`` (the 3-modal family's
+    in the stacked layout, --scan_blocks): each int8 kind serves n=64
+    (counters 0 just before, read just after the dispatches) against the
+    bf16 artifact's fused logits, phase 8's limits."""
+    from mla_tpu_torch.runtime.export import export_serving, load_serving
+    from mla_tpu_torch.runtime.serve import run_batch
+
+    example = family_request(family, np.random.default_rng(5), 4)
+    req = family_request(family, np.random.default_rng(6), 64)
+    bf = load_serving(export_serving(cfg, model, str(work / "bf16"),
+                                     weights_dtype="bfloat16",
+                                     example_batch=example))
+    ref = run_batch(bf, req)["fused"]
+    del bf
+    out = {}
+    blocks = family_blocks()[family]
+    for dtype in kinds:
+        scan = family == "modal3"
+        art = export_serving(cfg.replace(scan_blocks=scan), model,
+                             str(work / dtype), weights_dtype=dtype,
+                             example_batch=example)
+        srv = load_serving(art)
+        skip = set(srv.meta["a8_skip"])
+        if family == "cav":
+            want = {"B4": 4 * blocks, "B5": 0, "B6": 0, "B1f": blocks}
+        elif dtype == "int8_a8" and {"mlp/fc1", "mlp/fc2"} & skip:
+            want = {"B4": 4 * FAM_CAV_BLOCKS[1] + 1, "B5": 4 * (blocks - 12),
+                    "B6": 0, "B1f": blocks}
+        else:
+            m3 = blocks - FAM_CAV_BLOCKS[1]
+            want = {"B4": 4 * FAM_CAV_BLOCKS[1] + 1, "B5": 2 * m3, "B6": m3,
+                    "B1f": blocks}
+        zero_q8_counts()
+        times = []
+        for i in range(4):
+            before = q8_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = run_batch(srv, req)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            got = delta(before)
+            check(got == want, f"{family} {dtype}: launches {got} in one "
+                               f"dispatch, expected {want}")
+        launches = q8_counts()
+        rel = float(np.linalg.norm(res["fused"] - ref) / np.linalg.norm(ref))
+        agree = float(np.mean(np.argmax(res["fused"], 1)
+                              == np.argmax(ref, 1)))
+        out[dtype] = {"per_dispatch": want, "launches": launches,
+                      "scan_blocks": scan, "a8_skip": sorted(skip),
+                      "median_ms_n64": float(np.median(times[1:])) * 1e3,
+                      "rel_l2_vs_bf16": rel, "argmax_agree_vs_bf16": agree}
+        print(f"[families] {family} {dtype}: {json.dumps(out[dtype])}",
+              flush=True)
+        check(rel <= INT8_REL_L2[dtype] and agree >= INT8_ARGMAX_AGREE,
+              f"{family} {dtype}: fused logits against the bf16 artifact's: "
+              f"relative L2 {rel}, argmax agreement {agree}")
+        del srv
+        torch.cuda.empty_cache()
+    return out
+
+
+def family_serve_check(family: str, cfg, art: Path, model, label: str):
+    """One request of 3 through the artifact (load_serving, run_batch)
+    against the eval model's logits: relative L2 <= 3e-2; its B1f
+    launches. -> (rel, launches)."""
+    from mla_tpu_torch.evals.metrics import eval_logits
+    from mla_tpu_torch.runtime.export import load_serving
+    from mla_tpu_torch.runtime.serve import run_batch
+
+    req = family_request(family, np.random.default_rng(12), 3)
+    b1f = attention_kernels()["B1f"]
+    before = b1f.launches
+    srv = load_serving(str(art), device="cuda")
+    got = run_batch(srv, req)
+    served = b1f.launches - before
+    check(served == family_blocks()[family],
+          f"{label}: {served} B1f launches a request")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in req.items()}
+    batch["valid"] = torch.ones(3).cuda()
+    model.eval()
+    with torch.inference_mode():
+        out_m, fused = eval_logits(model, cfg, batch, batch["valid"])
+    want = {"fused": fused, **{f"logits_{m}": o for m, o in out_m.items()}}
+    rel = {k: float(np.linalg.norm(got[k] - want[k].float().cpu().numpy())
+                    / np.linalg.norm(want[k].float().cpu().numpy()))
+           for k in want}
+    check(all(v <= 3e-2 for v in rel.values()),
+          f"{label}: the artifact's logits against the eval model's: {rel}")
+    del srv
+    return rel, served
+
+
+def phase_families_driver(work: Path):
+    """Phase 13: the CLIP, CAV-MAE and IEMOCAP 3-modal families trained end
+    to end through the port's CLI and driver from files on disk (seeded
+    synthetic trees: 192 + 64 samples, 360x480 frames, 1024 x 128
+    fbanks, 256-token caches, 512-d CLIP features) at full width (768;
+    CAV-MAE 11 + 1 blocks, M3AE base 12), B=64, bf16 compute, fp32 master
+    weights: each family's MLA run (2 epochs), and CAV-MAE's and the
+    3-modal one's eval-only from the best checkpoint with --export_dir
+    (one request served), CAV-MAE's --resume and --cav_opti --cav_lrs
+    epochs, the 3-modal QMF epoch under --mask_percent 0.5, each MLA run
+    again under torch.profiler (epoch 1's split); int8 and int8_a8
+    artifacts of both; the fbank transform on the card against the CPU;
+    one fp32 B=2 step of each against the CPU."""
+    from mla_tpu_torch.data import synthetic
+    from mla_tpu_torch.data import transforms as T
+    from mla_tpu_torch.ops import specaug as sa
+    from mla_tpu_torch.runtime import checkpoint as ckpt_lib
+
+    blocks = family_blocks()
+    steps_an_epoch = -(-FAM_TRAIN // FAM_BATCH)
+    evals_an_epoch = -(-FAM_TEST // FAM_BATCH)
+    t = time.perf_counter()
+    roots = {f: work / f for f in ("clip", "cav", "modal3")}
+    synthetic.make_clip(str(roots["clip"]), n_train=FAM_TRAIN,
+                        n_test=FAM_TEST)
+    synthetic.make_cremad(str(roots["cav"]), n_train=FAM_TRAIN,
+                          n_test=FAM_TEST, fbank=True, fbank_len=FAM_AUDIO,
+                          frame_hw=FAM_FRAME_HW)
+    synthetic.make_iemocap(str(roots["modal3"]), n_train=FAM_TRAIN,
+                           n_test=FAM_TEST, token_len=FAM_TOKENS,
+                           fbank_len=FAM_AUDIO, frame_hw=FAM_FRAME_HW)
+    print(f"[families] wrote the CLIP, CREMA-D fbank and IEMOCAP trees "
+          f"({FAM_TRAIN} + {FAM_TEST} samples each) in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    out = {"blocks": blocks}
+    total = {"B1f": 0, "B1b": 0}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    def finite_history(hist, label, mods=("a", "v")):
+        check(all(np.isfinite(h[k]) for h in hist for k in
+                  ("loss", "acc") + tuple(f"loss_{m}" for m in mods)),
+              f"{label}: history {hist}")
+
+    def run(family, argv, label, per_step=None, per_eval=None):
+        n = blocks[family]
+        return m3ae_driver_run(argv, label, per_step or (n, n),
+                               per_eval or (n, 0))
+
+    def train(family, ck, *extra):
+        cfg, st, res, audit, launches, wall, peak = run(
+            family, family_argv(family, roots[family], ck, *extra),
+            f"{family} train")
+        hist = res["history"]
+        check([h["epoch"] for h in hist] == list(range(DRIVER_EPOCHS))
+              and len(audit.steps) == DRIVER_EPOCHS * steps_an_epoch
+              and len(audit.evals) == DRIVER_EPOCHS * evals_an_epoch,
+              f"{family} train: epochs {hist}, {len(audit.steps)} steps")
+        finite_history(hist, f"{family} train",
+                       ("a", "v", "t") if family == "modal3" else ("a", "v"))
+        check(all_finite(st.params.values()),
+              f"{family} train: non-finite parameter")
+        step_ms = audit.step_ms()
+        line = {"epoch1": family_epoch_line(res), "launches": launches,
+                "run_s": wall, "peak_bytes": peak, "step_ms": step_ms,
+                "step_ms_median": float(np.median(step_ms[1:])),
+                "best_acc": res["best_acc"], "history": hist}
+        print(f"[families] {family}: epoch 1 {json.dumps(line['epoch1'])}, "
+              f"peak {peak / 2**30:.2f} GiB, steps {step_ms} ms", flush=True)
+        add(launches)
+        return cfg, st, res, audit, line
+
+    def eval_only(family, ck, best, audit):
+        """Eval-only from the best checkpoint with --export_dir: the best
+        epoch's accuracy and logits bit for bit; one request served."""
+        art = work / f"{family}_export"
+        argv = [a for a in family_argv(family, roots[family], ck / best,
+                                       "--export_dir", str(art))
+                if a != "--train"]
+        cfg, ev_state, accs, ev_audit, launches, _, _ = run(
+            family, argv, f"{family} eval-only, --export_dir")
+        saved = ckpt_lib.load_meta(str(ck / best))["saved_epoch"]
+        logits = audit.logits[saved * evals_an_epoch:
+                              (saved + 1) * evals_an_epoch]
+        check(not ev_audit.steps and same_logits(ev_audit.logits, logits),
+              f"{family} eval-only: its logits differ from epoch {saved}'s")
+        add(launches)
+        rel, served = family_serve_check(family, cfg, art, ev_state.model,
+                                         f"{family} export")
+        add({"B1f": served, "B1b": 0})
+        return cfg, ev_state, accs, {"acc": accs["acc"],
+                                     "launches": launches,
+                                     "export_rel_l2": rel}
+
+    def traced(family):
+        """The MLA run again under torch.profiler: epoch 1 split by the
+        driver's spans (phase 11's reading)."""
+        from torch.profiler import ProfilerActivity, profile
+        ck = work / f"ck_{family}_trace"
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, st, r, _, launches, _, _ = run(
+                family, family_argv(family, roots[family], ck,
+                                    "--no_save_last"), f"{family} traced")
+        add(launches)
+        split = epoch_split(prof, 1)
+        check(split["steps"] == steps_an_epoch
+              and split["transforms"] == steps_an_epoch
+              and 0 < split["train_device_busy_share"] <= 1.0,
+              f"{family}: trace of epoch 1: {split}")
+        print(f"[families] {family} epoch 1 traced: {json.dumps(split)}",
+              flush=True)
+        del st, prof
+        torch.cuda.empty_cache()
+        shutil.rmtree(ck, ignore_errors=True)
+        return {**split, "wall_s": family_epoch_line(r)["wall_s"]}
+
+    def best_of(ck):
+        best = sorted(n for n in os.listdir(ck) if n.startswith("best_model")
+                      and not n.endswith(".json"))
+        check(bool(best) and (ck / best[-1] / ckpt_lib.STATE_FILE).is_file(),
+              f"checkpoints: {sorted(os.listdir(ck))}")
+        return best[-1]
+
+    # -- CLIP: fusion over the features, no kernel --------------------------
+    cfg, st, res, _, line = train("clip", work / "ck_clip", "--no_save_last")
+    check(line["launches"]["B1f"] == 0 and line["launches"]["B1b"] == 0,
+          f"clip: attention launches {line['launches']}")
+    out["clip"] = line
+    del st
+    shutil.rmtree(work / "ck_clip", ignore_errors=True)
+
+    # -- CAV-MAE: MLA with --cav_augnois, 2 epochs and --save_last ----------
+    ck = work / "ck_cav"
+    cfg, st, res, audit, line = train("cav", ck)
+    del st
+    torch.cuda.empty_cache()
+    best = best_of(ck)
+    check(ckpt_lib.load_meta(str(ck / "last"))["saved_epoch"]
+          == DRIVER_EPOCHS - 1, "cav: the `last` checkpoint")
+    cfg, ev_state, accs, line["eval_only"] = eval_only("cav", ck, best, audit)
+    check(accs["acc"] == res["best_acc"], f"cav eval-only accuracy {accs} "
+          f"against the best {res['best_acc']}")
+    line["int8"] = family_int8("cav", cfg, ev_state.model, work / "cav_q8",
+                               ("int8", "int8_a8"))
+    del ev_state
+    torch.cuda.empty_cache()
+    _, st, r3, _, rs_launches, _, _ = run(
+        "cav", family_argv("cav", roots["cav"], ck, "--resume",
+                           str(ck / "last"), "--epochs",
+                           str(DRIVER_EPOCHS + 1)), "cav resume")
+    check([h["epoch"] for h in r3["history"]] == [DRIVER_EPOCHS],
+          f"cav resume: {r3}")
+    finite_history(r3["history"], "cav resume")
+    add(rs_launches)
+    line["resume"] = {"history": r3["history"], "launches": rs_launches}
+    del st
+    shutil.rmtree(ck, ignore_errors=True)
+    _, st, ro, _, o_launches, _, _ = run(
+        "cav", family_argv("cav", roots["cav"], work / "ck_opti", "--epochs",
+                           "1", "--no_save_last", "--cav_opti", "--cav_lrs"),
+        "cav --cav_opti --cav_lrs")
+    finite_history(ro["history"], "cav --cav_opti")
+    add(o_launches)
+    line["cav_opti"] = {"history": ro["history"], "launches": o_launches}
+    del st
+    torch.cuda.empty_cache()
+    shutil.rmtree(work / "ck_opti", ignore_errors=True)
+    line["trace_epoch1"] = traced("cav")
+    out["cav"] = line
+
+    # -- the fbank transform: time a batch, card against CPU ----------------
+    x = torch.from_numpy(family_request("cav", np.random.default_rng(3),
+                                        FAM_BATCH)["fbank"])
+    xd = x.cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tf_ms = time_cuda(lambda: T.cav_fbank_transform(xd, gen, True, True), 10)
+    cpu_gen = torch.Generator().manual_seed(1)
+    b, tt, f = x.shape
+    draws = (sa.specaug_draws(cpu_gen, b, tt, f, "cpu"),
+             sa.noise_roll_draws(cpu_gen, b, tt, f, "cpu"))
+
+    def on(d, dev):
+        return {k: (on(v, dev) if isinstance(v, dict) else v.to(dev))
+                for k, v in d.items()}
+
+    laws = sa.specaug_draws, sa.noise_roll_draws
+    sa.specaug_draws = lambda g, b, t, f, dev, *a: on(draws[0], dev)
+    sa.noise_roll_draws = lambda g, b, t, f, dev: on(draws[1], dev)
+    try:
+        got = T.cav_fbank_transform(xd, None, True, True)
+        want = T.cav_fbank_transform(x, None, True, True)
+    finally:
+        sa.specaug_draws, sa.noise_roll_draws = laws
+    err = float((got.cpu() - want).abs().max())
+    check(err <= TRANSFORM_TOL, f"fbank transform on the card against the "
+          f"CPU: max abs {err:.3g} > {TRANSFORM_TOL}")
+    out["fbank_transform"] = {"ms": tf_ms, "cpu_max_abs_err": err,
+                              "tol": TRANSFORM_TOL}
+
+    # -- IEMOCAP 3-modal: MLA -dynamic, 2 epochs ----------------------------
+    ck = work / "ck_modal3"
+    cfg, st, res, audit, line = train("modal3", ck, "--no_save_last")
+    del st
+    torch.cuda.empty_cache()
+    cfg, ev_state, accs, line["eval_only"] = eval_only("modal3", ck,
+                                                       best_of(ck), audit)
+    check(accs["acc"] == res["best_acc"], f"modal3 eval-only accuracy {accs}"
+          f" against the best {res['best_acc']}")
+    line["int8"] = family_int8("modal3", cfg, ev_state.model,
+                               work / "modal3_q8", ("int8", "int8_a8"))
+    del ev_state
+    torch.cuda.empty_cache()
+    shutil.rmtree(ck, ignore_errors=True)
+    _, st, rq, qa, q_launches, _, _ = run(
+        "modal3", family_argv("modal3", roots["modal3"], work / "ck_qmf",
+                              "--epochs", "1", "--no_save_last",
+                              "--modulation", "QMF", "--mask_percent", "0.5",
+                              gs=False), "modal3 QMF, --mask_percent 0.5")
+    finite_history(rq["history"], "modal3 QMF", ("a", "v", "t"))
+    add(q_launches)
+    line["qmf"] = {"history": rq["history"], "launches": q_launches}
+    del st
+    torch.cuda.empty_cache()
+    shutil.rmtree(work / "ck_qmf", ignore_errors=True)
+    line["trace_epoch1"] = traced("modal3")
+    out["modal3"] = line
+
+    # -- fp32 B=2 steps, card against CPU -----------------------------------
+    from mla_tpu_torch.runtime.cli import parse_args
+    for family in ("cav", "modal3"):
+        c = parse_args(family_argv(family, roots[family], work / "unused"))[0]
+        out[family]["cpu_agreement"] = family_cpu_agreement(family, c)
+    out["launches"] = total
+    print(f"[families] launches {total}; epoch 1 samples/s: " + json.dumps(
+        {f: out[f]["epoch1"]["train_samples_per_s"]
+         for f in ("clip", "cav", "modal3")}) + "; peak GiB: " + json.dumps(
+        {f: out[f]["peak_bytes"] / 2**30 for f in ("clip", "cav", "modal3")})
+        + f"; fbank transform {tf_ms:.3f} ms a batch, card vs CPU {err:.3g}",
+        flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: torch.cuda.is_available() is false")
@@ -3284,6 +3781,11 @@ def main():
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "build"))
     try:
         m3ae_driver = phase_m3ae_driver(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "build"))
+    try:
+        families = phase_families_driver(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3379,6 +3881,15 @@ def main():
     # request, resume, remat under both policies, MVSA, the traced run)
     kernels[0]["launches"] += m3ae_driver["launches"]["B1f"]
     kernels[1]["launches"] += m3ae_driver["launches"]["B1b"]
+    # phase 13: the CAV-MAE and 3-modal CLI runs (CLIP launches none) and
+    # their int8 artifacts' dispatches
+    kernels[0]["launches"] += families["launches"]["B1f"]
+    kernels[1]["launches"] += families["launches"]["B1b"]
+    for r in (r for fam in ("cav", "modal3")
+              for r in families[fam]["int8"].values()):
+        kernels[0]["launches"] += r["launches"]["B1f"]
+        for k in ("B4", "B5", "B6"):
+            q8_total[k] += r["launches"][k]
     b4 = [r for r in q8_rows if not r["stacked"]]
     b5 = [r for r in q8_rows if r["stacked"]]
     kernels += [
@@ -3463,7 +3974,7 @@ def main():
         "av_serving": av_serving, "av_training": av_training,
         "int8_serving": int8, "head_training": head_training,
         "ln_dense_path": ln_path, "driver": driver,
-        "m3ae_driver": m3ae_driver,
+        "m3ae_driver": m3ae_driver, "families_driver": families,
         "seconds": time.perf_counter() - t_start}, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))

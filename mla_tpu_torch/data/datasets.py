@@ -7,14 +7,14 @@ sampling on the host (numpy, deterministic per-epoch generators keyed by
 it for a batch through the C++ loader when it is built; ``finish_batch``
 runs the fused transform on the device, drawing from the batch's
 generator where it draws (``utils.seed.batch_generator``), and returns the
-batch dict the classifiers and steps consume ({spec | token,
-padding_mask; image, label, idx, valid}).
+batch dict the classifiers and steps consume ({spec | fbank | token,
+padding_mask | token_feat, image_feat; image, label, idx, valid}).
 
-Ported: the CREMA-D audio-visual adapter (``--lorb base``), the M3AE
-image-text adapter (``--lorb m3ae``: Food-101, MVSA) and the MVSA
-text-visual adapter of the other families. The IEMOCAP 3-modal and the CLIP
-feature adapters raise in ``build_adapter`` with the ROADMAP item that
-brings them.
+The six adapters of the JAX package: CREMA-D audio-visual (``--lorb
+base``), CREMA-D CAV-MAE (``--lorb large``), M3AE image-text (``--lorb
+m3ae``: Food-101, MVSA), the MVSA text-visual one of the other families,
+IEMOCAP 3-modal (``--modal3``) and the precomputed CLIP features
+(``--clip``).
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ import torch
 from mla_tpu_torch.core.config import MLAConfig
 from mla_tpu_torch.data import transforms as T
 from mla_tpu_torch.data.datalists import build_index
-from mla_tpu_torch.data.masking import qmf_mask_set
+from mla_tpu_torch.data.masking import qmf_mask_set, random_mask
 from mla_tpu_torch.ops import image as im
 
 
@@ -177,6 +177,89 @@ class AVAdapter:
                                       out_dtype=_image_dtype(self.cfg))
         return {"spec": host["spec"].to(torch.float32)[:, None],
                 "image": image,
+                "label": host["label"].to(torch.int32),
+                "idx": host["idx"].to(torch.int32),
+                "valid": host["valid"].to(torch.float32)}
+
+
+class CAVAdapter:
+    """CREMA-D --lorb large (dataset.py:163-325): the (audio_length, 128)
+    fbank (normalised; SpecAug, noise and roll under --cav_augnois in
+    training) and the middle frame, resized and center-cropped to
+    ``image_size`` (224) by the cubic kernel, CAV-MAE's mean/std, no flip,
+    no jitter. The reference returns a 3-tuple here that main.py:159
+    unpacks as 4; the JAX package, and this port, emit the standard
+    dict."""
+    out = 224
+
+    def __init__(self, cfg: MLAConfig, mode: str):
+        self.cfg = cfg
+        self.mode = mode
+        self.out = cfg.image_size or type(self).out
+        self.index = build_index(cfg.dataset, cfg.data_root, mode,
+                                 required=("audio", "visual"))
+        self.canon = T.CANONICAL[self.out]
+
+    def __len__(self):
+        return len(self.index)
+
+    def _frame_path(self, name):
+        vdir = os.path.join(self.index.dir("visual"), name)
+        files = _frame_files(vdir)
+        return os.path.join(vdir, files[int(len(files) / 2)])
+
+    def sample_host(self, i: int, rng: np.random.Generator) -> Dict:
+        name = self.index.names[i]
+        fbank = np.load(os.path.join(self.index.dir("audio"), name + ".npy"))
+        img, hw = T.host_decode(self._frame_path(name), self.canon)
+        box = T.scale_box(im.resize_center_crop_box(*hw, self.out, self.out),
+                          hw, self.canon)
+        return {"fbank": fbank.astype(np.float32), "image_u8": img,
+                "boxes": np.asarray(box, np.float32),
+                "label": self.index.labels[i], "idx": i}
+
+    def batch_host(self, indices, rngs, map_fn=map) -> Dict:
+        """One host batch. Native path: the fbank npys, cut and padded to
+        (audio_length, 128) (the length the model is built for), and the
+        middle frames through the C++ thread pool. Without the library:
+        ``sample_host`` over ``map_fn``."""
+        from mla_tpu_torch.data import native_loader as nl
+        if not nl.available():
+            _warn_native_fallback(type(self).__name__)
+            return stack_samples(list(map_fn(self.sample_host, indices,
+                                             rngs)))
+        names = [self.index.names[i] for i in indices]
+        fbank = nl.load_npy_batch(
+            [os.path.join(self.index.dir("audio"), n + ".npy") for n in names],
+            (self.cfg.audio_length, 128))
+        imgs, hw = nl.decode_jpeg_batch([self._frame_path(n) for n in names],
+                                        (self.canon, self.canon))
+        boxes = np.zeros((len(names), 4), np.float32)
+        for i in range(len(names)):
+            oh, ow = max(int(hw[i, 0]), 1), max(int(hw[i, 1]), 1)
+            boxes[i] = T.scale_box(
+                im.resize_center_crop_box(oh, ow, self.out, self.out),
+                (oh, ow), self.canon)
+        return {"fbank": fbank, "image_u8": imgs, "boxes": boxes,
+                "label": np.asarray([self.index.labels[i] for i in indices]),
+                "idx": np.asarray(indices)}
+
+    def finish_batch(self, host: Dict[str, torch.Tensor],
+                     gen: Optional[torch.Generator] = None) -> Dict:
+        """fbank (B, T, 128) float32 and image (B, 3, out, out) in the
+        compute type. The image draws nothing; the fbank's augmentation
+        draws from ``gen`` (the JAX package splits its key: the image's
+        half, then the fbank's)."""
+        b = host["image_u8"].shape[0]
+        image = T.image_batch_transform(
+            host["image_u8"], host["boxes"],
+            torch.zeros(b, dtype=torch.bool, device=host["image_u8"].device),
+            gen, im.CAV_MEAN, im.CAV_STD, out=self.out, method="cubic",
+            out_dtype=_image_dtype(self.cfg))
+        fbank = T.cav_fbank_transform(host["fbank"], gen,
+                                      self.mode == "train",
+                                      self.cfg.cav_augnois)
+        return {"fbank": fbank, "image": image,
                 "label": host["label"].to(torch.int32),
                 "idx": host["idx"].to(torch.int32),
                 "valid": host["valid"].to(torch.float32)}
@@ -352,19 +435,136 @@ class TVAdapter(M3AEAdapter):
                 "valid": host["valid"].to(torch.float32)}
 
 
+class Modal3Adapter(M3AEAdapter):
+    """IEMOCAP 3-modality (dataset.py:642-803): tokens, the middle
+    face-crop frame and the (audio_length, 128) fbank (NOT normalised in
+    the reference's 3-modal path), with the CPM-Net missing-view mask
+    (``random_mask(3, n, mask_percent, default_rng(random_seed))``)
+    multiplying each modality by 0/1. The per-sample path keeps each
+    array's type (the JAX package's numpy promotes the masked arrays to
+    int64 / float64 there; the values are the same)."""
+
+    def __init__(self, cfg: MLAConfig, mode: str):
+        self.cfg = cfg
+        self.mode = mode
+        self.out = cfg.image_size or type(self).out
+        self.index = build_index(cfg.dataset, cfg.data_root, mode,
+                                 required=("text", "visual", "audio"))
+        self.canon = T.CANONICAL[self.out]
+        self.maskmatrix = random_mask(
+            3, len(self.index), cfg.mask_percent,
+            np.random.default_rng(cfg.random_seed))
+
+    def _image_path(self, name):
+        vdir = os.path.join(self.index.dir("visual"), name)
+        files = _frame_files(vdir)
+        return os.path.join(vdir, files[int(len(files) / 2)])
+
+    def sample_host(self, i: int, rng: np.random.Generator) -> Dict:
+        out = super().sample_host(i, rng)
+        name = self.index.names[i]
+        fbank = np.load(os.path.join(self.index.dir("audio"), name + ".npy"))
+        keep = self.maskmatrix[i]
+        out["fbank"] = fbank.astype(np.float32) * np.float32(keep[0])
+        out["image_u8"] = out["image_u8"] * np.uint8(keep[1])
+        out["token"] = out["token"] * np.int32(keep[2])
+        out["pm"] = out["pm"] * np.float32(keep[2])
+        return out
+
+    def batch_host(self, indices, rngs, map_fn=map) -> Dict:
+        """Native path: tokens, pm and the middle frames through the parent,
+        the fbank npys through the C++ pool, then the mask (multiply by
+        0/1 as ``sample_host``, dataset.py:721-728)."""
+        hb = super().batch_host(indices, rngs, map_fn)
+        if "fbank" in hb:           # the parent took sample_host
+            return hb
+        from mla_tpu_torch.data import native_loader as nl
+        adir = self.index.dir("audio")
+        names = [self.index.names[i] for i in indices]
+        fbank = nl.load_npy_batch(
+            [os.path.join(adir, n + ".npy") for n in names],
+            (self.cfg.audio_length, 128))
+        keep = self.maskmatrix[np.asarray(indices)]   # (B, 3) 0/1
+        hb["fbank"] = fbank * keep[:, 0].reshape(-1, 1, 1)
+        hb["image_u8"] = hb["image_u8"] * keep[:, 1].reshape(
+            -1, 1, 1, 1).astype(np.uint8)
+        hb["token"] = hb["token"] * keep[:, 2].reshape(-1, 1).astype(np.int32)
+        hb["pm"] = hb["pm"] * keep[:, 2].reshape(-1, 1).astype(np.float32)
+        return hb
+
+    def finish_batch(self, host: Dict[str, torch.Tensor],
+                     gen: Optional[torch.Generator] = None) -> Dict:
+        batch = super().finish_batch(host, gen)
+        batch["fbank"] = host["fbank"].to(torch.float32)
+        return batch
+
+
+class CLIPAdapter:
+    """Precomputed 512-d CLIP features (dataset.py:806-877), under
+    ``clip_feature/{text,image}/{mode}``; names whose two npys are missing
+    are dropped."""
+
+    def __init__(self, cfg: MLAConfig, mode: str):
+        self.cfg = cfg
+        self.mode = mode
+        self.index = build_index(cfg.dataset, cfg.data_root, mode)
+        self.tdir = os.path.join(cfg.data_root, "clip_feature/text", mode)
+        self.vdir = os.path.join(cfg.data_root, "clip_feature/image", mode)
+        keep = [k for k, n in enumerate(self.index.names)
+                if os.path.exists(os.path.join(self.tdir, n + ".npy"))
+                and os.path.exists(os.path.join(self.vdir, n + ".npy"))]
+        self.index.names = [self.index.names[k] for k in keep]
+        self.index.labels = [self.index.labels[k] for k in keep]
+
+    def __len__(self):
+        return len(self.index)
+
+    def sample_host(self, i: int, rng) -> Dict:
+        name = self.index.names[i]
+        return {"token_feat": np.load(os.path.join(
+                    self.tdir, name + ".npy")).reshape(-1).astype(np.float32),
+                "image_feat": np.load(os.path.join(
+                    self.vdir, name + ".npy")).reshape(-1).astype(np.float32),
+                "label": self.index.labels[i], "idx": i}
+
+    def batch_host(self, indices, rngs, map_fn=map) -> Dict:
+        """Native path: both feature npys through the C++ thread pool, their
+        length probed from the first file."""
+        from mla_tpu_torch.data import native_loader as nl
+        if not nl.available():
+            _warn_native_fallback(type(self).__name__)
+            return stack_samples(list(map_fn(self.sample_host, indices,
+                                             rngs)))
+        names = [self.index.names[i] for i in indices]
+        if not hasattr(self, "_feat_len"):
+            self._feat_len = int(np.load(os.path.join(
+                self.tdir, names[0] + ".npy")).size)
+        return {"token_feat": nl.load_npy_batch(
+                    [os.path.join(self.tdir, n + ".npy") for n in names],
+                    (self._feat_len,)),
+                "image_feat": nl.load_npy_batch(
+                    [os.path.join(self.vdir, n + ".npy") for n in names],
+                    (self._feat_len,)),
+                "label": np.asarray([self.index.labels[i] for i in indices]),
+                "idx": np.asarray(indices)}
+
+    def finish_batch(self, host: Dict[str, torch.Tensor],
+                     gen: Optional[torch.Generator] = None) -> Dict:
+        return {"token_feat": host["token_feat"].to(torch.float32),
+                "image_feat": host["image_feat"].to(torch.float32),
+                "label": host["label"].to(torch.int32),
+                "idx": host["idx"].to(torch.int32),
+                "valid": host["valid"].to(torch.float32)}
+
+
 def build_adapter(cfg: MLAConfig, mode: str):
-    """Dataset selection mirroring main.py:762-810. The IEMOCAP 3-modal and
-    the CLIP feature adapters raise with their ROADMAP item."""
+    """Dataset selection mirroring main.py:762-810."""
     if cfg.modal3 or cfg.dataset == "IEMOCAP":
-        raise NotImplementedError("the IEMOCAP 3-modal adapter is not ported "
-                                  "yet: ROADMAP queue A, item 8")
+        return Modal3Adapter(cfg, mode)
     if cfg.clip:
-        raise NotImplementedError("the CLIP feature adapter is not ported "
-                                  "yet: ROADMAP queue A, item 8")
+        return CLIPAdapter(cfg, mode)
     if cfg.lorb == "large":
-        raise NotImplementedError("the CAV-MAE fbank adapter (--lorb large) "
-                                  "is not ported yet: ROADMAP queue A, "
-                                  "item 8")
+        return CAVAdapter(cfg, mode)
     if cfg.lorb == "m3ae":
         return M3AEAdapter(cfg, mode)
     if cfg.dataset == "MVSA":

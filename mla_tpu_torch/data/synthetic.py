@@ -109,7 +109,10 @@ def make_m3ae(root: str, dataset="MVSA", n_train=8, n_test=4, seed=0,
 
 
 def make_iemocap(root: str, n_train=8, n_test=4, seed=0, token_len=256,
-                 fbank_len=1024):
+                 fbank_len=1024, frame_hw=(48, 64)):
+    """IEMOCAP tree for Modal3Adapter: 3 frames, an fbank and a token cache
+    per utterance. ``frame_hw``: the JPEG frames' (height, width); the
+    default writes the JAX package's files."""
     rng = np.random.default_rng(seed)
     nl = {m: [(f"ses{m}{i:03d}", IEMO_CLASSES[i % 4])
               for i in range(n_train if m == "train" else n_test)]
@@ -125,7 +128,7 @@ def make_iemocap(root: str, n_train=8, n_test=4, seed=0, token_len=256,
             vdir = os.path.join(vroot, name)
             os.makedirs(vdir, exist_ok=True)
             for k in range(3):
-                _write_jpg(os.path.join(vdir, f"f{k}.jpg"), rng)
+                _write_jpg(os.path.join(vdir, f"f{k}.jpg"), rng, hw=frame_hw)
             np.save(os.path.join(adir, name + ".npy"),
                     rng.standard_normal((fbank_len, 128)).astype(np.float32))
             tok = rng.integers(0, 30522, (1, token_len)).astype(np.int64)

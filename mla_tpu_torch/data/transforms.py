@@ -11,8 +11,8 @@ cropping the original, traded for a static-shape device pipeline.
 
 The JAX package computes in (H, W, C); the port in (C, H, W), which is the
 layout the convolutions take. The values are the same: every step after the
-resample is elementwise or per channel. ``cav_fbank_transform`` (the CAV-MAE
-fbank path) is not ported yet: ROADMAP queue A, item 8.
+resample is elementwise or per channel. ``cav_fbank_transform`` is the
+CAV-MAE fbank path (SpecAug, normalisation, noise and roll on the device).
 """
 
 from __future__ import annotations
@@ -23,6 +23,8 @@ import numpy as np
 import torch
 
 from mla_tpu_torch.ops import image as im
+from mla_tpu_torch.ops import specaug as sa
+from mla_tpu_torch.ops.fbank import normalize_fbank
 
 CANONICAL = {224: 256, 256: 288,
              32: 48, 64: 96}   # host decode size per target crop (small
@@ -124,3 +126,18 @@ def av_frames_transform(frames_u8, boxes, flip, gen=None, out: int = 224,
                               flip.reshape(b * t), gen, im.IMAGENET_MEAN,
                               im.IMAGENET_STD, out=out, out_dtype=out_dtype)
     return x.reshape(b, t, 3, out, out).transpose(1, 2)
+
+
+def cav_fbank_transform(fbank, gen: Optional[torch.Generator], train: bool,
+                        augnois: bool):
+    """CAVDataset fbank path (dataset.py:281-321): in training under
+    --cav_augnois, SpecAug, then the normalisation, then noise and roll,
+    drawn from ``gen`` in that order; otherwise the normalisation only.
+    fp32 (B, T, 128)."""
+    x = fbank.to(torch.float32)
+    if not (train and augnois):
+        return normalize_fbank(x)
+    b, t, f = x.shape
+    x = normalize_fbank(sa.specaug(x, sa.specaug_draws(gen, b, t, f,
+                                                       x.device)))
+    return sa.noise_roll(x, sa.noise_roll_draws(gen, b, t, f, x.device))

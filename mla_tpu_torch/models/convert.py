@@ -59,7 +59,8 @@ def _weight(sd, leaf, name, layout=lambda a: a):
         sd[name] = _t(layout(np.asarray(leaf["q8"])))
         sd[name + "_scale"] = _t(layout(np.asarray(leaf["scale"])))
     else:
-        sd[name] = _t(layout(np.asarray(leaf)))
+        a = np.asarray(leaf)      # 0-d: an Adam step count, no layout
+        sd[name] = _t(layout(a) if a.ndim else a)
 
 
 def _linear(sd, node, name):
@@ -173,27 +174,71 @@ def m3ae_state_dict(params: Mapping, prefix: str = "") -> Dict[str, torch.Tensor
     return sd
 
 
+def cavmae_state_dict(params: Mapping, prefix: str = ""
+                      ) -> Dict[str, torch.Tensor]:
+    """CAVMAEFT params -> reference models/cav_mae.py state_dict names
+    (``export_cavmae``): the nodes present, so an encoder with one
+    modality path maps as it is."""
+    sd: Dict[str, torch.Tensor] = {}
+    for m in ("a", "v"):
+        if f"patch_embed_{m}" in params:
+            node = params[f"patch_embed_{m}"]["proj"]
+            _conv(sd, node, f"{prefix}patch_embed_{m}.proj")
+            sd[f"{prefix}patch_embed_{m}.proj.bias"] = _t(node["bias"])
+    for t in ("modality_a", "modality_v", "pos_embed_a", "pos_embed_v"):
+        if t in params:
+            sd[prefix + t] = _t(params[t])
+    for name in sorted(params):
+        if not name.startswith("blocks_"):
+            continue
+        tag, i = name[len("blocks_"):].split("_")
+        t = f"{prefix}blocks_{tag}.{i}"
+        blk = params[name]
+        for norm in ("norm1", "norm1_a", "norm1_v",
+                     "norm2", "norm2_a", "norm2_v"):
+            if f"{norm}_scale" in blk:
+                sd[f"{t}.{norm}.weight"] = _t(blk[f"{norm}_scale"])
+                sd[f"{t}.{norm}.bias"] = _t(blk[f"{norm}_bias"])
+        _linear(sd, blk["attn"]["qkv"], f"{t}.attn.qkv")
+        _linear(sd, blk["attn"]["proj"], f"{t}.attn.proj")
+        _linear(sd, blk["mlp"]["fc1"], f"{t}.mlp.fc1")
+        _linear(sd, blk["mlp"]["fc2"], f"{t}.mlp.fc2")
+    for norm in ("norm_a", "norm_v", "norm"):
+        if norm in params:
+            _layer_norm(sd, params[norm], prefix + norm)
+    if "mlp_head" in params:     # Sequential(LayerNorm, Linear)
+        _layer_norm(sd, params["mlp_head_norm"], prefix + "mlp_head.0")
+        _linear(sd, params["mlp_head"], prefix + "mlp_head.1")
+    return sd
+
+
 def state_dict_from_jax(params: Mapping, cfg, batch_stats=None
                         ) -> Dict[str, torch.Tensor]:
     """Full Flax classifier params -> the reference classifier state_dict
-    (float32 tensors, no ``module.`` prefix). Ported families: ``--lorb
-    m3ae`` without ``--modal3`` and ``--lorb base`` without ``--clip``.
-    ``batch_stats`` (the AV family's) adds the BatchNorm buffers; without it
-    the dict holds parameters only, the shape of an optimizer moment tree."""
+    (float32 tensors, no ``module.`` prefix), family by family as
+    ``export_classifier``: ``--lorb base`` (2x ResNet-18; with ``--clip``
+    the fusion head only), ``large`` (2x CAV-MAE), ``m3ae`` (2x M3AE) and
+    ``m3ae --modal3`` (CAV-MAE + 2x M3AE), then the QMF ``*_fc`` heads and
+    the fusion module. ``batch_stats`` (the AV family's) adds the
+    BatchNorm buffers; without it the dict holds parameters only, the
+    shape of an optimizer moment tree."""
+    sd: Dict[str, torch.Tensor] = {}
     if cfg.lorb == "base" and not cfg.clip:
         sd = resnet_state_dict(params["audio_net"], "audio_net.")
         sd.update(resnet_state_dict(params["visual_net"], "visual_net."))
         if batch_stats is not None:
             sd.update(batch_stats_from_jax(batch_stats))
-    elif cfg.lorb == "m3ae" and not cfg.modal3:
+    elif cfg.lorb == "large":
+        sd = cavmae_state_dict(params["mae_a"], "mae_a.")
+        sd.update(cavmae_state_dict(params["mae_v"], "mae_v."))
+    elif cfg.lorb == "m3ae" and cfg.modal3:
+        sd = cavmae_state_dict(params["mae_a"], "mae_a.")
+        sd.update(m3ae_state_dict(params["mae_v"], "mae_v."))
+        sd.update(m3ae_state_dict(params["mae_t"], "mae_t."))
+    elif cfg.lorb == "m3ae":
         sd = m3ae_state_dict(params["mae_a"], "mae_a.")
         sd.update(m3ae_state_dict(params["mae_v"], "mae_v."))
-    else:
-        raise NotImplementedError(
-            "state_dict_from_jax covers the ported classifiers (--lorb m3ae "
-            "without --modal3, --lorb base without --clip); see ROADMAP "
-            "queue A")
-    for fc in ("audio_fc", "visual_fc"):
+    for fc in ("audio_fc", "visual_fc", "txtual_fc"):
         if fc in params:
             _linear(sd, params[fc], fc)
     for fc in ("fc_out", "fc_x", "fc_y", "fc"):
@@ -207,11 +252,13 @@ def q8_state_dict(sd: Mapping[str, torch.Tensor], model: torch.nn.Module
     """An int8 artifact's dict (int8 weights with ``_scale`` entries, block
     sites per block) -> the state_dict ``model`` loads with ``strict=True``.
 
-    Where the model streams int8 (its tensor of that name is int8: the M3AE
-    block sites, the image-patch projection, the text table) the weight
+    Where the model streams int8 (its tensor of that name is int8: the
+    M3AE and CAV-MAE block sites, the image-patch projection, the text
+    table) the weight
     stays int8 and its scale takes the model's shape; in the stacked layout
     the block sites' weights and scales are stacked over the blocks. Every
-    other quantized weight (heads, the AV family's convs) is dequantized as
+    other quantized weight (heads, the AV family's convs, the CAV-MAE patch
+    convs) is dequantized as
     ``q8.bf16 * scale.bf16`` in bf16 (``split_q8``)."""
     want = model.state_dict()
     out: Dict[str, torch.Tensor] = {}
@@ -221,10 +268,10 @@ def q8_state_dict(sd: Mapping[str, torch.Tensor], model: torch.nn.Module
         site = block_site(path) if leaf in ("weight", "weight_scale") \
             else None
         key = None if site is None else \
-            f"{site[0]}.encoder.stack.{BLOCK_SITES[site[2]][0]}_" \
+            f"{site[0]}.encoder.stack.{BLOCK_SITES[site[3]][0]}_" \
             f"{'scale' if leaf == 'weight_scale' else 'weight'}"
         if key is not None and key in want:
-            stacks.setdefault(key, {})[site[1]] = t
+            stacks.setdefault(key, {})[site[2]] = t
         elif name.endswith("_scale") and name[:-len("_scale")] in sd:
             if name in want:
                 out[name] = t.reshape(want[name].shape)

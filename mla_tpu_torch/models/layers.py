@@ -1,5 +1,6 @@
-"""Transformer building blocks of the M3AE encoder (port of the float path of
-``mla_tpu/models/layers.py``: MultiHeadAttention, Mlp, M3AEBlock).
+"""Transformer building blocks of the M3AE and CAV-MAE encoders (port of
+``mla_tpu/models/layers.py``: MultiHeadAttention, Mlp, M3AEBlock,
+CAVBlock).
 
 Pre-LN block with qkv bias and -1e7 padding-mask attention (reference:
 models/m3ae.py:86-160). Submodule names follow the reference state_dict
@@ -317,35 +318,112 @@ class _DotsRemat(torch.autograd.Function):
         return (None, grads[0], None) + grads[1:]
 
 
+class CAVAttention(nn.Module):
+    """timm Attention (cav_mae.py:16): fused qkv (with bias) -> attention
+    with no padding mask -> proj, under the reference's names ``qkv`` and
+    ``proj``; scale = head_dim**-0.5. int8 sites as ``MultiHeadAttention``'s
+    (never stacked)."""
+
+    def __init__(self, dim: int, num_heads: int, q8: Optional[str] = None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = _linear_or_q8(dim, 3 * dim, q8)
+        self.proj = _linear_or_q8(dim, dim, q8)
+
+    def reset_parameters(self, gen: torch.Generator):
+        reset_xavier_linear(self.qkv, gen)
+        reset_xavier_linear(self.proj, gen)
+
+    def forward(self, x):
+        qkv = _site(self.qkv, x, None, "qkv")
+        return _site(self.proj, fused_attention_qkv(qkv, None,
+                                                    self.num_heads),
+                     None, "proj")
+
+
+class CAVBlock(nn.Module):
+    """timm ViT block with per-modality LayerNorms (cav_mae.py:86-113;
+    ``mla_tpu/models/layers.py:CAVBlock``), under the reference's names:
+    ``norm1``, ``norm1_a``, ``norm1_v``, ``norm2``, ``norm2_a``,
+    ``norm2_v``, ``attn.qkv``, ``attn.proj``, ``mlp.fc1``, ``mlp.fc2``.
+    All six LayerNorms exist whichever modality runs; ``modality`` None
+    selects the shared ones, 'a' or 'v' that modality's. The attention and
+    MLP run in ``dtype`` (the compute type); the residual adds keep the
+    stream's type (fp32 under bf16 compute, as JAX promotes it)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: int = 4,
+                 q8: Optional[str] = None):
+        super().__init__()
+        for i in (1, 2):
+            for s in ("", "_a", "_v"):
+                setattr(self, f"norm{i}{s}", nn.LayerNorm(dim, eps=1e-5))
+        self.attn = CAVAttention(dim, num_heads,
+                                 None if q8 is None else "unrolled")
+        self.mlp = Mlp(dim, dim, mlp_ratio,
+                       None if q8 is None else "unrolled")
+
+    def reset_parameters(self, gen: torch.Generator):
+        for i in (1, 2):
+            for s in ("", "_a", "_v"):
+                reset_layer_norm(getattr(self, f"norm{i}{s}"))
+        self.attn.reset_parameters(gen)
+        self.mlp.reset_parameters(gen)
+
+    def forward(self, x, modality: Optional[str] = None, dtype=None):
+        # ``CAVBlock._ln``: fp32 statistics and affine, one cast to the
+        # compute type (the stream keeps its own type, fp32 under bf16)
+        s = "" if modality is None else f"_{modality}"
+        dt = dtype or x.dtype
+        x = x + self.attn(layer_norm(getattr(self, f"norm1{s}"), x).to(dt))
+        return x + self.mlp(layer_norm(getattr(self, f"norm2{s}"), x).to(dt))
+
+
 # an encoder block's int8 sites: port module path in the block -> (the
-# stacked layout's site, the JAX package's site name)
+# stacked layout's site, the JAX package's site name); the M3AE block's
+# names, then the CAV-MAE (timm) block's
 BLOCK_SITES = {"attention.qkv_linear": ("qkv", "attn/qkv"),
                "attention.fc": ("proj", "attn/proj"),
                "transformer_mlp.fc1": ("fc1", "mlp/fc1"),
-               "transformer_mlp.fc2": ("fc2", "mlp/fc2")}
-_BLOCK_SITE = re.compile(r"^(.*)\.encoder\.blocks\.(\d+)\.("
-                         + "|".join(map(re.escape, BLOCK_SITES)) + r")$")
+               "transformer_mlp.fc2": ("fc2", "mlp/fc2"),
+               "attn.qkv": ("qkv", "attn/qkv"),
+               "attn.proj": ("proj", "attn/proj"),
+               "mlp.fc1": ("fc1", "mlp/fc1"),
+               "mlp.fc2": ("fc2", "mlp/fc2")}
+_M3AE_SITES = "|".join(map(re.escape, list(BLOCK_SITES)[:4]))
+_CAV_SITES = "|".join(map(re.escape, list(BLOCK_SITES)[4:]))
+_BLOCK_SITE = re.compile(r"^(.*)\.encoder\.(blocks)\.(\d+)\.("
+                         + _M3AE_SITES + r")$")
+_CAV_BLOCK_SITE = re.compile(r"^(.*)\.(blocks_[avu])\.(\d+)\.("
+                             + _CAV_SITES + r")$")
 
 
-def block_site(path: str) -> Optional[Tuple[str, int, str]]:
+def block_site(path: str) -> Optional[Tuple[str, str, int, str]]:
     """The module path of an encoder block's int8 site -> (encoder path,
-    block index, its ``BLOCK_SITES`` key); None for any other path."""
-    m = _BLOCK_SITE.match(path)
-    return None if m is None else (m.group(1), int(m.group(2)), m.group(3))
+    the block list: 'blocks' for an M3AE encoder, 'blocks_a', 'blocks_v'
+    or 'blocks_u' for a CAV-MAE one, block index, its ``BLOCK_SITES``
+    key); None for any other path. Only M3AE blocks have a stacked
+    layout."""
+    m = _BLOCK_SITE.match(path) or _CAV_BLOCK_SITE.match(path)
+    return None if m is None else (m.group(1), m.group(2), int(m.group(3)),
+                                   m.group(4))
 
 
 def jax_site_name(path: str, stacked: bool) -> Optional[str]:
     """The JAX package's W8A8 site name of the Linear at module ``path``:
-    ``mae_a/block_0/attn/qkv`` unrolled; in the stacked layout the block is
-    a detached template (``mla_tpu/models/m3ae.py:224``), so one name,
-    ``attn/qkv``, covers that site in every layer of both encoders. None
-    for a site that never runs W8A8 (the image-patch GEMM)."""
+    ``mae_a/block_0/attn/qkv`` for an unrolled M3AE block; in the stacked
+    layout the M3AE block is a detached template (``mla_tpu/models/m3ae.py:
+    224``), so one name, ``attn/qkv``, covers that site in every layer of
+    both encoders. A CAV-MAE block is never stacked:
+    ``mae_a/blocks_a_0/attn/qkv``. None for a site that never runs W8A8
+    (the image-patch GEMM)."""
     site = block_site(path)
     if site is None:
         return None
-    enc, i, sub = site
+    enc, blocks, i, sub = site
     name = BLOCK_SITES[sub][1]
-    return name if stacked else f"{enc}/block_{i}/{name}"
+    if blocks == "blocks":
+        return name if stacked else f"{enc}/block_{i}/{name}"
+    return f"{enc}/{blocks}_{i}/{name}"
 
 
 def configure_q8(model: nn.Module, a8: bool, skip=frozenset(),

@@ -19,8 +19,12 @@ prefix is stripped, each key is prefixed with the encoder (``mae_a.``,
 
 Which encoders take a file follows the JAX package's ``ENCODER_KIND``:
 ``--lorb m3ae`` loads ``mae_a`` (text) and ``mae_v`` (image) from M3AE
-files; ``--pretrained_t`` needs ``--modal3`` (ROADMAP queue A, item 8, as
-the CAV-MAE encoders of ``--lorb large``).
+files; ``--lorb large`` both CAV-MAE encoders from CAV-MAE files; ``--lorb
+m3ae --modal3`` ``mae_a`` (audio) from a CAV-MAE file and ``mae_v``
+(image), ``mae_t`` (text) from M3AE files. The CAV-MAE encoders carry the
+reference's names too (``patch_embed_a.proj``, ``blocks_a.{i}.norm1_a``,
+``attn.qkv``, ``mlp.fc1``, ...): a CAV-MAE file's other modality's path
+and its head are skipped, as the JAX package skips them.
 """
 
 from __future__ import annotations
@@ -32,7 +36,9 @@ from torch import nn
 
 # (lorb, modal3) -> {encoder: kind of the file it loads}
 ENCODER_KIND = {
+    ("large", False): {"mae_a": "cav", "mae_v": "cav"},
     ("m3ae", False): {"mae_a": "m3ae", "mae_v": "m3ae"},
+    ("m3ae", True): {"mae_a": "cav", "mae_v": "m3ae", "mae_t": "m3ae"},
 }
 
 

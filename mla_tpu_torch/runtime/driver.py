@@ -11,9 +11,8 @@ same printed lines.
 
 The device is the caller's choice (``run(cfg, device=...)``: the card
 unless 'cpu' is asked for), never a config flag. Flags that need more than
-one device, and flags of families the port does not have yet, raise
-``NotImplementedError`` naming their ROADMAP item; none is ignored
-silently.
+one device raise ``NotImplementedError`` naming their ROADMAP item; none is
+ignored silently.
 """
 
 from __future__ import annotations
@@ -39,8 +38,7 @@ from mla_tpu_torch.train.state import create_train_state
 from mla_tpu_torch.train.steps import make_train_step
 from mla_tpu_torch.utils.seed import setup_seed
 
-# (flag is set, what to say): the multi-device flags (ROADMAP A9) and the
-# flags whose module is not ported yet
+# (flag is set, what to say, ROADMAP item): the multi-device flags
 _NOT_PORTED = (
     (lambda c: c.mesh_shape is not None and math.prod(c.mesh_shape) > 1,
      "--mesh_shape with more than one device", "9"),
@@ -50,7 +48,6 @@ _NOT_PORTED = (
     (lambda c: c.pp_remat, "--pp_remat", "9"),
     (lambda c: c.dist_coordinator or c.dist_num_processes != 1
      or c.dist_process_id != 0, "--dist_*", "9"),
-    (lambda c: c.cav_augnois, "--cav_augnois", "8"),
 )
 # flags that name JAX mechanisms: accepted, and said to be ignored
 _JAX_ONLY = (("scan_unroll", 1), ("compile_cache", ""))
@@ -307,8 +304,14 @@ def _run(cfg: MLAConfig, max_steps_per_epoch: Optional[int],
         else:
             print("Loss: {:.3f}, Acc: {:.3f}, Best Acc: {:.3f}".format(
                 epoch_metrics.get("loss", 0.0), acc, best_acc))
-        print("Audio Acc: {:.3f}, Visual Acc: {:.3f} ".format(
-            accs.get("acc_a", 0.0), accs.get("acc_v", 0.0)))
+        if cfg.modal3:
+            # main.py:934-941 prints all three per-modality accuracies
+            print("Audio Acc: {:.3f}, Visual Acc: {:.3f}, Text Acc: {:.3f} "
+                  .format(accs.get("acc_a", 0.0), accs.get("acc_v", 0.0),
+                          accs.get("acc_t", 0.0)))
+        else:
+            print("Audio Acc: {:.3f}, Visual Acc: {:.3f} ".format(
+                accs.get("acc_a", 0.0), accs.get("acc_v", 0.0)))
         if cfg.save_last:
             # rolling restart point for --resume
             ckpt_lib.save_checkpoint_async(

@@ -10,16 +10,21 @@ This is not the JAX package's artifact (StableHLO + flax msgpack), which the
 port cannot read without JAX. The port's artifact holds weights (and, for
 the AV family, BatchNorm's float32 running statistics) and rebuilds the
 model from ``meta.json``; the forward is the port's own code in eval mode,
-with the hand-written kernels on the card (attention for M3AE; the 3x3 conv
-for AV under ``--pallas_conv on``; the int8 GEMMs and MLP for int8 M3AE).
+with the hand-written kernels on the card (attention for M3AE and
+CAV-MAE; the 3x3 conv for AV under ``--pallas_conv on``; the int8 GEMMs
+and MLP for int8 M3AE and CAV-MAE).
 
 int8 artifacts (``--export_dtype int8`` / ``int8_a8``, ``mla_tpu/runtime/
 export.py:163-332``): ``quantize_int8`` stores the big weights as int8 with
 fp32 per-output-channel scales and every other parameter in bf16. At load
-the M3AE block sites, image-patch projection and text table stay int8 and
-stream through the kernels (in the stacked layout when meta's config says
-``scan_blocks``); every other int8 weight is dequantized once
-(``models/convert.py:q8_state_dict``). ``int8_a8`` also quantizes the
+the M3AE and CAV-MAE block sites (qkv, proj, fc1, fc2), the M3AE
+image-patch projection and text table stay int8 and stream through the
+kernels (the M3AE blocks in the stacked layout when meta's config says
+``scan_blocks``; CAV-MAE blocks are never stacked); every other int8
+weight (heads, the AV and CAV-MAE convs) is dequantized once
+(``models/convert.py:q8_state_dict``; the JAX package's ``split_q8``
+hands the CAV-MAE patch conv its unscaled int8 kernel instead, ROADMAP
+C). ``int8_a8`` also quantizes the
 activations of each block site per row (W8A8), except at the sites that
 ``calibrate_a8`` finds above 5% relative error on the example batch; meta
 records them (``a8_skip``) with every site's error (``a8_site_rel_err``).
@@ -37,7 +42,7 @@ Run as a module to export from a reference-layout ``.pth``:
         [--device cuda|cpu]
     (or --dataset CREMAD --lorb base [--pallas_conv on] for the AV family;
     int8_a8 calibrates on the first 4 rows of --calibration's features, on
-    --device)
+    --device; --lorb large, --modal3 and --clip likewise)
 """
 
 from __future__ import annotations
@@ -63,13 +68,17 @@ from mla_tpu_torch.ops.attention import flat_attention_route
 
 # Per-sample input tensors each ported classifier family reads.
 FEATURE_KEYS: Dict[str, Tuple[str, ...]] = {
-    "M3AEClassifier": ("token", "padding_mask", "image"),
     "AVClassifier": ("spec", "image"),
+    "CAVClassifier": ("fbank", "image"),
+    "M3AEClassifier": ("token", "padding_mask", "image"),
+    "Modal3Classifier": ("fbank", "image", "token", "padding_mask"),
+    "CLIPClassifier": ("token_feat", "image_feat"),
 }
 
 TEXT_LEN = 256    # the reference's BERT token length (max_length 256)
 SPEC_HW = (129, 626)   # CREMA-D log-spectrogram (benchmarks/profile_step.py)
 N_FRAMES = 3           # CREMA-D frames per clip
+CLIP_DIM = 512         # CLIP feature width (dataset.py:806-877)
 
 _META = "meta.json"
 _WEIGHTS = "weights.pt"
@@ -82,16 +91,25 @@ def feature_keys(model) -> Tuple[str, ...]:
 def reference_feature_specs(cfg: MLAConfig) -> Dict[str, dict]:
     """Per-sample feature shapes of the reference inputs. M3AE: 256 tokens,
     3 x image_size^2 pixels (256 unless --image_size). AV (CREMA-D): a
-    (1, 129, 626) spectrogram and 3 frames of 3 x image_size^2 (224)."""
+    (1, 129, 626) spectrogram and 3 frames of 3 x image_size^2 (224).
+    CAV-MAE: an (audio_length, 128) fbank and one 3 x image_size^2 (224)
+    frame. Modal3: the fbank and M3AE's inputs. CLIP: two 512-d
+    features."""
+    f32 = lambda *shape: {"shape": list(shape), "dtype": "float32"}
+    fbank = {"fbank": f32(cfg.audio_length, 128)}
+    if cfg.clip and cfg.lorb == "base":
+        return {"token_feat": f32(CLIP_DIM), "image_feat": f32(CLIP_DIM)}
     if cfg.lorb == "base":
         side = cfg.image_size or 224
-        return {"spec": {"shape": [1, *SPEC_HW], "dtype": "float32"},
-                "image": {"shape": [3, N_FRAMES, side, side],
-                          "dtype": "float32"}}
+        return {"spec": f32(1, *SPEC_HW),
+                "image": f32(3, N_FRAMES, side, side)}
+    if cfg.lorb == "large":
+        side = cfg.image_size or 224
+        return dict(fbank, image=f32(3, side, side))
     side = cfg.image_size or 256
-    return {"token": {"shape": [TEXT_LEN], "dtype": "int32"},
-            "padding_mask": {"shape": [TEXT_LEN], "dtype": "float32"},
-            "image": {"shape": [3, side, side], "dtype": "float32"}}
+    out = {"token": {"shape": [TEXT_LEN], "dtype": "int32"},
+           "padding_mask": f32(TEXT_LEN), "image": f32(3, side, side)}
+    return dict(fbank, **out) if cfg.modal3 else out
 
 
 def _boundary_dtype(dt) -> str:
@@ -174,6 +192,37 @@ def _serving_model(cfg: MLAConfig, vocab: int, sd, q8: Optional[str],
     return model.eval().requires_grad_(False)
 
 
+def _vocab(sd) -> int:
+    """The text vocabulary of a state_dict's M3AE encoders (30522 where
+    there is none)."""
+    for enc in ("mae_a", "mae_v"):
+        t = sd.get(f"{enc}.text_embedding.weight")
+        if t is not None:
+            return int(t.shape[0])
+    return 30522
+
+
+def _family(cfg: MLAConfig, model) -> dict:
+    """What the port needs beyond meta's config to rebuild the forward
+    (the JAX artifact bakes it into its graph)."""
+    name = type(model).__name__
+    if name == "AVClassifier":
+        return {"resnet_stages": list(model.stages),
+                "pallas_conv": cfg.pallas_conv}
+    out = {}
+    if name in ("CAVClassifier", "Modal3Classifier"):
+        out.update(audio_length=cfg.audio_length,
+                   cav_blocks=list(cfg.cav_blocks))
+    if name == "CAVClassifier":
+        out["image_size"] = cfg.image_size
+    enc = {"M3AEClassifier": "mae_a", "Modal3Classifier": "mae_v"}.get(name)
+    if enc is not None:
+        c = getattr(model, enc).config
+        out.update(m3ae_size=c.model_type, text_vocab_size=c.text_vocab_size,
+                   scan_blocks=cfg.scan_blocks)
+    return out
+
+
 def calibrate_a8(cfg: MLAConfig, sd, features: Mapping, device=None,
                  threshold: Optional[float] = None):
     """The W8A8 outlier guard (``mla_tpu/runtime/export.py:calibrate_a8``):
@@ -192,8 +241,7 @@ def calibrate_a8(cfg: MLAConfig, sd, features: Mapping, device=None,
         errs[site] = max(rel, errs.get(site, 0.0))
 
     model = _serving_model(
-        cfg, sd["mae_a.text_embedding.weight"].shape[0], sd,
-        "stacked" if cfg.scan_blocks else "unrolled", dev,
+        cfg, _vocab(sd), sd, "stacked" if cfg.scan_blocks else "unrolled", dev,
         getattr(torch, cfg.compute_dtype), a8=True, record=record)
     rows = min(_CALIBRATION_ROWS, len(next(iter(features.values()))))
     batch = {k: torch.from_numpy(np.asarray(features[k])[:rows]).to(dev)
@@ -246,20 +294,15 @@ def export_serving(cfg: MLAConfig, model, out_dir: str,
                   else v.detach().cpu()).contiguous()
               for k, v in model.state_dict().items()}
     a8_errs, a8_skip = {}, frozenset()
-    if type(model).__name__ == "AVClassifier":
-        # what the port needs to rebuild the forward; the JAX artifact
-        # bakes these into its graph instead
-        family = {"resnet_stages": list(model.stages),
-                  "pallas_conv": cfg.pallas_conv}
-    else:
-        enc = model.mae_a.config
-        family = {"m3ae_size": enc.model_type,
-                  "text_vocab_size": enc.text_vocab_size,
-                  "scan_blocks": cfg.scan_blocks}
-        if weights_dtype == "int8_a8":      # the model's size, as at load
-            a8_errs, a8_skip = calibrate_a8(
-                dataclasses.replace(cfg, m3ae_size=enc.model_type), sd,
-                example_batch, device)
+    family = _family(cfg, model)
+    if weights_dtype == "int8_a8" and type(model).__name__ not in (
+            "AVClassifier", "CLIPClassifier"):
+        # the model's size, as at load
+        a8_errs, a8_skip = calibrate_a8(
+            dataclasses.replace(cfg, **{k: family[k] for k in
+                                        ("m3ae_size", "cav_blocks",
+                                         "audio_length") if k in family}),
+            sd, example_batch, device)
     os.makedirs(out_dir, exist_ok=True)
     torch.save(sd, os.path.join(out_dir, _WEIGHTS))
     meta = {
@@ -308,10 +351,12 @@ class ServingModel:
         with open(os.path.join(out_dir, _META)) as f:
             self.meta = json.load(f)
         c = self.meta["config"]
-        family = {k: c[k] for k in ("m3ae_size", "pallas_conv", "scan_blocks")
+        family = {k: c[k] for k in ("m3ae_size", "pallas_conv", "scan_blocks",
+                                    "audio_length", "image_size")
                   if k in c}
-        if "resnet_stages" in c:
-            family["resnet_stages"] = tuple(c["resnet_stages"])
+        for k in ("resnet_stages", "cav_blocks"):
+            if k in c:
+                family[k] = tuple(c[k])
         self.compute_dtype = compute_dtype or c["compute_dtype"]
         self.cfg = MLAConfig(
             dataset=c["dataset"], lorb=c["lorb"], modal3=c["modal3"],
@@ -437,8 +482,7 @@ def main(argv=None):
         with np.load(ns.calibration) as z:
             example = {k: z[k] for k in z.files}
     sd = load_reference_checkpoint(ns.checkpoint)
-    emb = sd.get("mae_a.text_embedding.weight")
-    model = make_classifier(cfg, 30522 if emb is None else int(emb.shape[0]))
+    model = make_classifier(cfg, _vocab(sd))
     model.load_state_dict(sd, strict=True, assign=True)
     sizes = cfg.export_batch_sizes or (1, 8, cfg.batch_size)
     path = export_serving(cfg, model, cfg.export_dir, batch_sizes=sizes,

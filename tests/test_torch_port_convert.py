@@ -85,16 +85,28 @@ def test_reference_pth_loads_strict_and_exports(tmp_path):
 
 
 def test_other_families_raise():
+    """The other three families are ported: each builds (CAV-MAE and the
+    3-modal classifier at CPU sizes) as the JAX package's class, with
+    the reference's parameter names, and its state_dict loads into the
+    family's meta-device model with strict=True (their weights against
+    JAX's: tests/test_torch_port_cav.py)."""
     from mla_tpu_torch.core.config import MLAConfig
-    from mla_tpu_torch.models.classifiers import build_classifier
-    from mla_tpu_torch.models.convert import state_dict_from_jax
+    from mla_tpu_torch.models.classifiers import (build_classifier,
+                                                  make_classifier)
 
-    for kw in (dict(dataset="CREMAD", lorb="large"),
-               dict(dataset="Food101", clip=True),
-               dict(dataset="IEMOCAP", lorb="m3ae", modal3=True)):
+    small = dict(audio_length=64, cav_blocks=(1, 2), image_size=32)
+    for kw, cls, key in (
+            (dict(dataset="CREMAD", lorb="large", **small), "CAVClassifier",
+             "mae_v.blocks_v.0.norm1_v.weight"),
+            (dict(dataset="Food101", clip=True), "CLIPClassifier",
+             "fusion_module.fc_out.weight"),
+            (dict(dataset="IEMOCAP", lorb="m3ae", modal3=True,
+                  m3ae_size="base1", **small), "Modal3Classifier",
+             "mae_t.encoder.blocks.0.attention.qkv_linear.weight")):
         cfg = MLAConfig(**kw).validate()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_classifier(cfg)
-    with pytest.raises(NotImplementedError):
-        state_dict_from_jax({}, MLAConfig(dataset="CREMAD",
-                                          lorb="large").validate())
+        model = build_classifier(cfg, text_vocab_size=64)
+        assert type(model).__name__ == cls
+        sd = model.state_dict()
+        assert key in sd
+        make_classifier(cfg, 64).load_state_dict(sd, strict=True,
+                                                 assign=True)

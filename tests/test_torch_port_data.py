@@ -343,18 +343,28 @@ def test_loader_raises_producer_errors(cremad_root):
         next(pipeline.Loader(ad, 2, device="cpu").epoch(0))
 
 
-def test_only_the_av_adapter_is_ported(cremad_root):
-    """Of the audio-visual and feature adapters only the CREMA-D AV one is
-    ported: the CLIP, CAV-MAE and IEMOCAP 3-modal adapters raise naming
-    ROADMAP item 8 (the image-text adapters are ported and held in
-    tests/test_torch_port_m3ae_data.py)."""
-    from mla_tpu_torch.core.config import MLAConfig
+def test_only_the_av_adapter_is_ported(cremad_root, tmp_path):
+    """build_adapter picks each family's adapter as the JAX package does:
+    the CREMA-D AV one for --lorb base, the CAV-MAE one for --lorb large,
+    the CLIP feature one for --clip and the IEMOCAP 3-modal one for
+    --modal3 (the image-text adapters are held in
+    tests/test_torch_port_m3ae_data.py; the new ones against JAX's in
+    tests/test_torch_port_cav_data.py)."""
     from mla_tpu_torch.data import datasets
 
-    assert isinstance(datasets.build_adapter(_cfgs(cremad_root)[1], "train"),
-                      datasets.AVAdapter)
-    for kw, item in ((dict(dataset="Food101", lorb="base", clip=True), "8"),
-                     (dict(lorb="large"), "8"),
-                     (dict(dataset="IEMOCAP", lorb="m3ae", modal3=True), "8")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            datasets.build_adapter(MLAConfig(**kw).validate(), "train")
+    jsyn.make_clip(str(tmp_path / "clip"), n_train=2, n_test=1)
+    jsyn.make_iemocap(str(tmp_path / "iemo"), n_train=2, n_test=1)
+    for root, kw, cls in (
+            (cremad_root, {}, datasets.AVAdapter),
+            (cremad_root, dict(lorb="large"), datasets.CAVAdapter),
+            (str(tmp_path / "clip"), dict(dataset="Food101", clip=True),
+             datasets.CLIPAdapter),
+            (str(tmp_path / "iemo"), dict(dataset="IEMOCAP", lorb="m3ae",
+                                          modal3=True),
+             datasets.Modal3Adapter)):
+        jcfg, cfg = _cfgs(root, **kw)
+        ad = datasets.build_adapter(cfg, "train")
+        assert type(ad) is cls
+        ja = jds.build_adapter(jcfg, "train")
+        assert type(ad).__name__ == type(ja).__name__
+        assert ad.index.names == ja.index.names and len(ad) > 0

@@ -445,12 +445,17 @@ def test_tensorboard_profile_and_flag_checks(tiny_cremad, tmp_path, capsys):
                      (dict(dist_coordinator="localhost:1234"), "9"),
                      (dict(seq_parallel=True), "9"),
                      (dict(pp_microbatches=2, scan_blocks=True), "9"),
-                     (dict(cav_augnois=True), "8"),
-                     (dict(lorb="large"), "8"),
-                     (dict(clip=True), "8"),
-                     (dict(lorb="m3ae", dataset="IEMOCAP", modal3=True), "8")):
+                     (dict(mesh_shape=(1, 2)), "9"),
+                     (dict(pp_remat=True), "9"),
+                     (dict(dist_num_processes=2), "9"),
+                     (dict(seq_parallel=True, lorb="large"), "9")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             run(cfg.replace(**kw), device="cpu")
+    # the families of ROADMAP item 8 are ported: their flags pass the check
+    from mla_tpu_torch.runtime.driver import check_flags
+    for kw in (dict(cav_augnois=True, lorb="large"), dict(clip=True),
+               dict(lorb="m3ae", dataset="IEMOCAP", modal3=True)):
+        check_flags(cfg.replace(**kw))
 
 
 README_LINES = [

@@ -1106,3 +1106,75 @@ def test_ln_dense_fp32_input_bf16_compute_at_the_sites(f):
                                again):
         _within(torch, g, wt, LN_TOL["bfloat16"][name], name)
         assert torch.equal(g, g2), name
+
+
+def test_a8_accuracy_on_trained_weights_on_the_card(tmp_path):
+    """W8A8 on trained weights, on the card (the CPU counterpart:
+    tests/test_torch_port_a8_trained.py; the JAX test:
+    tests/test_export.py::TestExportM3AEInt8::test_a8_accuracy_on_trained_weights).
+    The debug M3AE (Food-101, --gs_flag, --scan_blocks, 32x32 images,
+    batch 4, 256-token vocabulary, 16 tokens) trains 30 MLA steps on the
+    card (the loss must fall); a bfloat16 and an int8_a8 artifact of that
+    state, calibrated on the card on the training batch, serve it there,
+    the int8 one through B4/B5/B6. The JAX test's limits: every W8A8
+    site's calibration error recorded and positive, no fused-argmax flip,
+    relative fused-logit error below 0.35."""
+    torch = _cuda()
+    from mla_tpu_torch.core.config import MLAConfig
+    from mla_tpu_torch.models.classifiers import build_classifier
+    from mla_tpu_torch.ops.q8_matmul import (q8_matmul, q8_matmul_stacked,
+                                             q8_mlp_stacked)
+    from mla_tpu_torch.runtime.export import export_serving, load_serving
+    from mla_tpu_torch.train import optim
+    from mla_tpu_torch.train.state import create_train_state
+    from mla_tpu_torch.train.steps import make_train_step
+
+    vocab, length, img, nb = 256, 16, 32, 4
+    rng = np.random.default_rng(0)
+    pm = np.zeros((nb, length), np.float32)
+    pm[0, 9:] = 1.0
+    pm[2, 4:] = 1.0
+    batch_np = {"token": rng.integers(0, vocab, (nb, length)).astype(
+                    np.int32),
+                "padding_mask": pm,
+                "image": rng.standard_normal((nb, 3, img, img)).astype(
+                    np.float32),
+                "label": rng.integers(0, 101, nb).astype(np.int32),
+                "valid": np.ones(nb, np.float32)}
+    cfg = MLAConfig(dataset="Food101", lorb="m3ae", gs_flag=True,
+                    m3ae_size="debug", scan_blocks=True, image_size=img,
+                    batch_size=nb, train=True).validate()
+    model = build_classifier(cfg, seed=0, text_vocab_size=vocab)
+    spec = optim.make_spec(cfg)
+    state = create_train_state(model, cfg, spec, seed=0, device="cuda")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
+    step = make_train_step(model, cfg, spec, len_dl=8)
+    losses = []
+    for i in range(30):
+        state, m = step(state, batch, 5e-3, i)
+        losses.append(float(m["loss"]))
+    assert losses[-1] < losses[0], (losses[0], losses[-1])
+
+    feats = {k: batch_np[k] for k in ("token", "padding_mask", "image")}
+    out16, out8 = str(tmp_path / "bf16"), str(tmp_path / "a8")
+    export_serving(cfg, model, out16, batch_sizes=(nb,),
+                   weights_dtype="bfloat16", example_batch=feats)
+    export_serving(cfg, model, out8, batch_sizes=(nb,),
+                   weights_dtype="int8_a8", example_batch=feats)
+    srv16, srv8 = load_serving(out16), load_serving(out8)
+    errs = srv8.meta["a8_site_rel_err"]
+    assert errs and all(v > 0 for v in errs.values()), errs
+    a = srv16(feats)
+    kernels = (q8_matmul, q8_matmul_stacked, q8_mlp_stacked)
+    before = [k.launches for k in kernels]
+    b = srv8(feats)
+    b4, b5, b6 = (k.launches - n for k, n in zip(kernels, before))
+    # the image patches through B4; the 2 x 2 blocks' qkv and proj through
+    # B5 and their MLPs through B6 (or site by site through B5 where
+    # calibration skipped an MLP site)
+    assert b4 == 1 and b5 + 2 * b6 == 4 * 2 * 2 and b5 >= 8, (b4, b5, b6)
+    agree = np.argmax(a["fused"], -1) == np.argmax(b["fused"], -1)
+    assert agree.all(), f"prediction flips on trained weights: {agree}"
+    rel = (np.abs(a["fused"] - b["fused"]).max()
+           / max(np.abs(a["fused"]).max(), 1e-9))
+    assert rel < 0.35, f"trained-weight W8A8 logit error {rel:.3f}"

@@ -407,10 +407,11 @@ def test_port_draws_by_their_law(trees, monkeypatch):
     assert torch.all(torch.sort(order, dim=1).values == torch.arange(3))
 
 
-def test_build_adapter_selection_and_unported(trees):
+def test_build_adapter_selection_and_unported(trees, tmp_path):
     """--lorb m3ae takes the M3AE adapter for Food-101 and MVSA; MVSA on
-    another family the TV adapter; the IEMOCAP 3-modal and CLIP adapters
-    raise naming item 8."""
+    another family the TV adapter; --clip the CLIP feature adapter (before
+    --lorb m3ae) and IEMOCAP or --modal3 the 3-modal one (before every
+    other), as the JAX package selects."""
     from mla_tpu_torch.core.config import MLAConfig
     from mla_tpu_torch.data import datasets
 
@@ -420,7 +421,16 @@ def test_build_adapter_selection_and_unported(trees):
     tv = datasets.build_adapter(_cfgs(trees["MVSA"], "MVSA", "base")[1],
                                 "train")
     assert type(tv) is datasets.TVAdapter
-    for kw in (dict(dataset="Food101", lorb="base", clip=True),
-               dict(dataset="IEMOCAP", lorb="m3ae", modal3=True)):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            datasets.build_adapter(MLAConfig(**kw).validate(), "train")
+    clip = datasets.build_adapter(
+        _cfgs(trees["Food101"], "Food101", "base", clip=True)[1], "train")
+    assert type(clip) is datasets.CLIPAdapter and len(clip) == 0  # no npys
+    iemo = str(tmp_path / "iemo")
+    jsyn.make_iemocap(iemo, n_train=2, n_test=1)
+    for kw in (dict(lorb="m3ae", modal3=True), dict(lorb="base"),
+               dict(lorb="large")):
+        jcfg, cfg = _cfgs(iemo, "IEMOCAP", **kw)
+        assert type(datasets.build_adapter(cfg, "train")) is \
+            datasets.Modal3Adapter
+        assert type(jds.build_adapter(jcfg, "train")).__name__ == \
+            "Modal3Adapter"
+    assert MLAConfig is not None
