@@ -192,6 +192,31 @@ result line:
               plain attention and SDPA never. Phase 3's attention rows
               include CAV-MAE's calls: B=64, H=12, D=64 at S=512 and
               S=196 with no mask, bf16 and fp32.
+14. etl     — the port's offline ETL CLI (etl.cli.main, --device cuda) over
+              raw media the phase writes: 192 + 64 CREMA-D-like clips, each
+              a 16 kHz int16 wav of 2.0-3.5 s (one of 320 samples, shorter
+              than a fbank frame) and a 360x480 30 fps MJPG video of 2.5 s
+              (cv2 writes it without ffmpeg; mp4-to-wav runs over a tone
+              that ffmpeg writes where an ffmpeg binary is on PATH, and
+              the phase says so where none is). gen-txt (--test_frac 0.25) and
+              gen-stat write the lists; video-frames (--fps 1) the frames;
+              extract-spec the (129, 626) spectrograms of one root and
+              extract-fbank the 1024 x 128 fbanks of a second root that
+              shares the frames; extract-fbank --mix_dir --mix_lambda 0.3,
+              extract-token --vocab and preprocess-iemo over 8 clips each.
+              extract-spec, extract-fbank and the mixup on the card against
+              the CPU over 8 clips (max abs <= 1e-3 in the log domain; the
+              320-sample clip's fbank all zeros on both), files/s of each
+              and one file under torch.profiler. Then the CLI trains from
+              the ETL's trees: CREMA-D --lorb base --gs_flag --pallas_conv
+              on, 1 epoch with --export_torch (B3 52 a step, 26 an eval
+              batch: 182), CAV-MAE --lorb large --gs_flag, 1 epoch (B1f/B1b
+              24 + 24 a step, 24 an eval batch);
+              `python -m mla_tpu_torch.runtime.parity --reference ""` from
+              the .pth (the eval-only branch: 26 B3, the training run's
+              accuracy for the exported weights); FiLM and
+              GatedFusion (width 512, B=64, each switch) on the card
+              against the CPU (relative L2 <= 1e-5 fp32, <= 1e-2 bf16).
 
 Phase 3 also holds the int8 kernels against their plain versions: B4 and
 B5 (weight-only and W8A8) at the four block sites of the base width (qkv
@@ -3739,6 +3764,392 @@ def phase_families_driver(work: Path):
     return out
 
 
+# ---------------------------------------------------------------- phase 14
+
+ETL_TRAIN, ETL_TEST = 192, 64          # gen-txt --test_frac 0.25 of 256
+ETL_SR = 16000
+ETL_SECONDS = (2.0, 3.5)               # CREMA-D clips run 1-5 s
+ETL_SHORT = 320                        # samples: shorter than one fbank frame
+ETL_VIDEO = (75, 30.0)                 # frames, fps: 2.5 s at CREMA-D's 30 fps
+ETL_CMP = 8                            # clips run on the card and on the CPU
+ETL_TOL = 1e-3                         # log domain: the JAX goldens' atol
+ETL_VOCAB = ("[PAD] [UNK] [CLS] [SEP] [MASK] the a is of and to in it "
+             "angry happy sad calm voice says word ##s ##ed ##ing").split()
+FUSION_WIDTH, FUSION_CLASSES = 512, 101   # CLIP's feature width, Food-101
+FUSION_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def etl(*argv, device="cuda") -> float:
+    """One subcommand of the port's ETL CLI (``etl.cli.main``), on
+    ``device`` where it takes one; its wall seconds."""
+    from mla_tpu_torch.data.etl import cli as etl_cli
+    t = time.perf_counter()
+    etl_cli.main([*map(str, argv), *(("--device", device) if argv[0]
+                                     in etl_cli.DEVICE_COMMANDS else ())])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def etl_raw_media(raw: Path, n: int, seed: int = 14):
+    """Seeded CREMA-D-like raw media under ``raw``: ``wav/<name>.wav`` (16
+    kHz int16 mono, ETL_SECONDS long, a class tone in noise; clip 0 of
+    ETL_SHORT samples), ``video/<name>.avi`` (MJPG, 360x480, ETL_VIDEO,
+    a moving gradient with a class stripe: cv2 writes it without ffmpeg)
+    and ``all.txt``, the CREMA-D datalist ('<name>.flv <label>'). The
+    videos are written over 8 threads. Returns the names and labels."""
+    import cv2
+    from scipy.io import wavfile
+    from mla_tpu_torch.data.synthetic import CREMAD_CLASSES
+
+    rng = np.random.default_rng(seed)
+    names = [f"10{i:03d}_ETL_{CREMAD_CLASSES[i % 6]}_XX" for i in range(n)]
+    labels = [CREMAD_CLASSES[i % 6] for i in range(n)]
+    for d in ("wav", "video"):
+        (raw / d).mkdir(parents=True, exist_ok=True)
+    for i, name in enumerate(names):
+        m = ETL_SHORT if i == 0 else int(ETL_SR * rng.uniform(*ETL_SECONDS))
+        t = np.arange(m) / ETL_SR
+        wave = 0.2 * np.sin(2 * np.pi * (150.0 + 60.0 * (i % 6)) * t) \
+            + 0.05 * rng.standard_normal(m)
+        wavfile.write(str(raw / "wav" / f"{name}.wav"), ETL_SR,
+                      (np.clip(wave, -1, 1) * 32767).astype(np.int16))
+    (raw / "all.txt").write_text("".join(f"{n_}.flv {lab}\n"
+                                         for n_, lab in zip(names, labels)))
+    h, w = DRIVER_FRAME_HW
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.stack([xx * 255 // w, yy * 255 // h, (xx + yy) % 255],
+                    -1).astype(np.uint8)
+
+    def video(i):
+        out = cv2.VideoWriter(str(raw / "video" / f"{names[i]}.avi"),
+                              cv2.VideoWriter_fourcc(*"MJPG"), ETL_VIDEO[1],
+                              (w, h))
+        stripe = h // 6 * (i % 6)
+        for k in range(ETL_VIDEO[0]):
+            frame = np.roll(base, 4 * k + i, axis=1)
+            frame[stripe:stripe + h // 6] = 230
+            out.write(frame)
+        out.release()
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(video, range(n)))
+    return names, labels
+
+
+def etl_link(names, src: Path, dst: Path, ext: str, rename=None):
+    """``dst/<name><ext>`` -> ``src/<name or rename[name]><ext>``."""
+    dst.mkdir(parents=True, exist_ok=True)
+    for name in names:
+        (dst / f"{name}{ext}").symlink_to(
+            src / f"{(rename or {}).get(name, name)}{ext}")
+
+
+def npy_max_diff(a: Path, b: Path) -> float:
+    files = sorted(p.name for p in a.glob("*.npy"))
+    check(files and files == sorted(p.name for p in b.glob("*.npy")),
+          f"etl: {a} and {b} hold other files")
+    return max(float(np.abs(np.load(a / f) - np.load(b / f)).max())
+               for f in files)
+
+
+def fusion_card_vs_cpu() -> dict:
+    """FiLM and GatedFusion at CLIP's width, B=64, each switch: the card
+    against the CPU from the same weights, fp32 and bf16 compute."""
+    import copy
+    from mla_tpu_torch.models import fusion
+
+    rng = np.random.default_rng(14)
+    x, y = (torch.from_numpy(rng.standard_normal(
+        (FAM_BATCH, FUSION_WIDTH)).astype(np.float32)) for _ in range(2))
+    out = {}
+    for name, key in (("FiLM", "x_film"), ("GatedFusion", "x_gate")):
+        for switch in (True, False):
+            mod = getattr(fusion, name)(FUSION_WIDTH, FUSION_WIDTH,
+                                        FUSION_CLASSES, **{key: switch})
+            mod.reset_parameters(torch.Generator().manual_seed(14))
+            card = copy.deepcopy(mod).cuda()
+            for dt in (torch.float32, torch.bfloat16):
+                with torch.no_grad():
+                    want = mod(x.to(dt), y.to(dt))
+                    got = card(x.cuda().to(dt), y.cuda().to(dt))
+                check(all(g.dtype == dt and g.shape == w.shape
+                          for g, w in zip(got, want))
+                      and got[2].shape == (FAM_BATCH, FUSION_CLASSES),
+                      f"{name} {key}={switch} {dt}: types or shapes")
+                rel = rel_l2({i: g.float().cpu() for i, g in enumerate(got)},
+                             {i: w.float() for i, w in enumerate(want)})
+                label = f"{name} {key}={switch} {str(dt)[6:]}"
+                check(rel <= FUSION_REL_L2[dt],
+                      f"{label}: card vs CPU relative L2 {rel:.3e} > "
+                      f"{FUSION_REL_L2[dt]}")
+                out[label] = rel
+    print(f"[etl] FiLM / GatedFusion card vs CPU relative L2: "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
+def phase_etl(work: Path):
+    """Phase 14: the port's offline ETL CLI on the card over raw media the
+    phase writes (ETL_TRAIN + ETL_TEST CREMA-D-like clips: wavs and 360x480
+    MJPG videos), then training from what it wrote: gen-txt, gen-stat,
+    video-frames, extract-spec (one root) and extract-fbank (a second root
+    sharing the frames); extract-fbank with --mix_dir over 8 clips,
+    extract-token --vocab, preprocess-iemo over 8 clips; extract-spec and
+    extract-fbank again on the card and on the CPU over 8 clips (max abs
+    <= ETL_TOL, the ETL_SHORT clip's fbank zeros on both), files/s, one
+    profiled file. Then CREMA-D --lorb base --pallas_conv on, 1 epoch with
+    --export_torch (52 B3 a step, 26 an eval batch), CAV-MAE --lorb large,
+    1 epoch (24 + 24 B1f/B1b a step, 24 B1f an eval batch),
+    ``runtime.parity --reference ""`` from the .pth (the driver's eval-only
+    branch: 26 B3 an eval batch; the accuracy of the training run's own
+    eval of the exported weights), and FiLM / GatedFusion on the card
+    against the CPU."""
+    from mla_tpu_torch.data.etl import cli as etl_cli
+    from mla_tpu_torch.ops.conv3x3 import conv3x3
+    from mla_tpu_torch.runtime import parity
+
+    out = {"files": ETL_TRAIN + ETL_TEST}
+    t = time.perf_counter()
+    raw = work / "raw"
+    names, labels = etl_raw_media(raw / "all", ETL_TRAIN + ETL_TEST)
+    out["write_media_s"] = time.perf_counter() - t
+    print(f"[etl] wrote {len(names)} wavs and {ETL_VIDEO[0]}-frame "
+          f"{DRIVER_FRAME_HW} MJPG videos in {out['write_media_s']:.1f} s",
+          flush=True)
+    spec_root, fbank_root = work / "cremad_spec", work / "cremad_fbank"
+    lists = spec_root / "lists"
+    lists.mkdir(parents=True)
+    times = {}
+    times["gen-txt"] = etl("gen-txt", raw / "all" / "all.txt", work / "my",
+                           "--test_frac", "0.25")
+    for mode in ("train", "test"):
+        os.replace(work / f"my_{mode}.txt", lists / f"my_{mode}_cre.txt")
+    times["gen-stat"] = etl("gen-stat", lists / "my_train_cre.txt",
+                            lists / "my_test_cre.txt",
+                            "--out", lists / "stat_cre.txt")
+    split = {m: [ln.split(".flv ")[0] for ln in
+                 (lists / f"my_{m}_cre.txt").read_text().splitlines()]
+             for m in ("train", "test")}
+    check(len(split["train"]) == ETL_TRAIN and len(split["test"]) == ETL_TEST
+          and sorted(split["train"] + split["test"]) == sorted(names)
+          and (lists / "stat_cre.txt").read_text().split()
+          == sorted(set(labels)), "etl: gen-txt / gen-stat lists")
+    for k in ("video-frames", "extract-spec", "extract-fbank"):
+        times[k] = 0.0
+    for mode, ns in split.items():
+        etl_link(ns, raw / "all" / "wav", raw / mode / "wav", ".wav")
+        etl_link(ns, raw / "all" / "video", raw / mode / "video", ".avi")
+        frames = spec_root / f"visual/{mode}_imgs/Image-01-FPS"
+        times["video-frames"] += etl("video-frames", raw / mode / "video",
+                                     frames, "--fps", "1")
+        check(all(len(list((frames / n_).glob("*.jpg"))) == 3 for n_ in ns),
+              f"etl: video-frames {mode}: not 3 frames a clip")
+        times["extract-spec"] += etl("extract-spec", raw / mode / "wav",
+                                     spec_root / f"audio/{mode}_fbank")
+        times["extract-fbank"] += etl("extract-fbank", raw / mode / "wav",
+                                      fbank_root / f"audio/{mode}_fbank")
+    shutil.copytree(lists, fbank_root / "lists")
+    (fbank_root / "visual").symlink_to(spec_root / "visual")
+    for root, shape in ((spec_root, DRIVER_SPEC), (fbank_root, (1024, 128))):
+        arrs = [np.load(p) for p in root.glob("audio/*_fbank/*.npy")]
+        check(len(arrs) == len(names) and all(
+            a.shape == shape and a.dtype == np.float32
+            and np.isfinite(a).all() for a in arrs),
+              f"etl: {root.name}: {len(arrs)} npys, not {shape} or finite")
+    short_mode = "train" if names[0] in split["train"] else "test"
+    check(not np.load(fbank_root / f"audio/{short_mode}_fbank/"
+                      f"{names[0]}.npy").any(),
+          f"etl: the {ETL_SHORT}-sample clip's fbank is not all zeros")
+    rate = {k: len(names) / times[k] for k in
+            ("video-frames", "extract-spec", "extract-fbank")}
+    print(f"[etl] card: seconds {json.dumps(times)}; files/s "
+          f"{json.dumps(rate)}", flush=True)
+    out.update(seconds=times, files_per_s=rate)
+
+    # mp4-to-wav runs ffmpeg, a binary the card machine may lack
+    if shutil.which("ffmpeg") is None:
+        print("[etl] mp4-to-wav not run: no ffmpeg binary on PATH",
+              flush=True)
+        out["mp4_to_wav"] = "not run: no ffmpeg"
+    else:
+        (raw / "mp4").mkdir()
+        subprocess.run(["ffmpeg", "-y", "-loglevel", "error", "-f", "lavfi",
+                        "-i", "sine=frequency=440:duration=1",
+                        str(raw / "mp4" / "tone.mp4")], check=True)
+        etl("mp4-to-wav", raw / "mp4", work / "mp4_wav")
+        sr, wave = etl_cli._wavread(str(work / "mp4_wav" / "tone.wav"))
+        check(sr == ETL_SR and abs(len(wave) - ETL_SR) < ETL_SR // 10,
+              f"etl: mp4-to-wav wrote {len(wave)} samples at {sr} Hz")
+        out["mp4_to_wav"] = len(wave)
+
+    # waveform mixup over 8 clips, each blended with another clip's wav
+    mixed = split["train"][:ETL_CMP]
+    partner = dict(zip(mixed, split["train"][ETL_CMP:2 * ETL_CMP]))
+    etl_link(mixed, raw / "all" / "wav", raw / "mix" / "wav", ".wav")
+    etl_link(mixed, raw / "all" / "wav", raw / "mix" / "partner", ".wav",
+             rename=partner)
+    mix_args = ("--mix_dir", raw / "mix" / "partner", "--mix_lambda", "0.3")
+    etl("extract-fbank", raw / "mix" / "wav", work / "mix_cuda", *mix_args)
+    etl("extract-fbank", raw / "mix" / "wav", work / "mix_cpu", *mix_args,
+        device="cpu")
+    out["mix_max_abs"] = npy_max_diff(work / "mix_cuda", work / "mix_cpu")
+    check(out["mix_max_abs"] <= ETL_TOL,
+          f"etl: mixup card vs CPU {out['mix_max_abs']:.3e}")
+
+    # tokens from a seeded TSV and a vocabulary the phase writes
+    rng = np.random.default_rng(15)
+    vocab = work / "vocab.txt"
+    vocab.write_text("\n".join(ETL_VOCAB) + "\n")
+    words = ETL_VOCAB[5:] + ["unknown", "Angry!"]
+    captions = {n_: " ".join(rng.choice(words, int(rng.integers(0, 40))))
+                for n_ in mixed}
+    (work / "texts.tsv").write_text("".join(f"{n_}\t{c}\n"
+                                            for n_, c in captions.items()))
+    times["extract-token"] = etl("extract-token", work / "texts.tsv",
+                                 work / "tok", "--vocab", vocab)
+    toks = [np.load(work / "tok" / f"{n_}_{k}.npy") for n_ in mixed
+            for k in ("token", "pm")]
+    check(all(a.shape == (1, FAM_TOKENS) for a in toks)
+          and {a.dtype for a in toks} == {np.dtype(np.int64),
+                                          np.dtype(np.float32)},
+          "etl: extract-token npys")
+
+    # IEMOCAP's one-shot recipe over 8 clips; the train frames as faces
+    iemo = work / "iemo_lists"
+    iemo.mkdir()
+    sep = " [split|sign] "
+    (iemo / "my_train_iemo.txt").write_text("".join(
+        f"{n_}.mp4{sep}{captions[n_]}{sep}ang\n" for n_ in mixed))
+    times["preprocess-iemo"] = etl(
+        "preprocess-iemo", iemo, raw / "all" / "wav",
+        spec_root / "visual/train_imgs/Image-01-FPS", work / "iemo",
+        "--splits", "train,dev", "--vocab", vocab)
+    import cv2
+    faces = sorted((work / "iemo/visual/train_imgs").glob("*/*.jpg"))
+    check(len(faces) == 3 * ETL_CMP
+          and cv2.imread(str(faces[0])).shape == (256, 256, 3)
+          and len(list((work / "iemo/audio/train_fbank").glob("*.npy")))
+          == ETL_CMP
+          and len(list((work / "iemo/text_token/train_token").glob("*.npy")))
+          == 2 * ETL_CMP
+          and not (work / "iemo/audio/dev_fbank").exists(),
+          "etl: preprocess-iemo layout")
+
+    # the card against the CPU, over 8 clips with the short one
+    cmp = names[:ETL_CMP]
+    etl_link(cmp, raw / "all" / "wav", raw / "cmp" / "wav", ".wav")
+    cmp_s, cmp_diff = {}, {}
+    for kind in ("extract-spec", "extract-fbank"):
+        for dev in ("cuda", "cpu"):
+            cmp_s[f"{kind} {dev}"] = etl(kind, raw / "cmp" / "wav",
+                                         work / f"{kind}_{dev}", device=dev)
+        cmp_diff[kind] = npy_max_diff(work / f"{kind}_cuda",
+                                      work / f"{kind}_cpu")
+        check(cmp_diff[kind] <= ETL_TOL,
+              f"etl: {kind} card vs CPU max abs {cmp_diff[kind]:.3e} > "
+              f"{ETL_TOL}")
+    for dev in ("cuda", "cpu"):
+        check(not np.load(work / f"extract-fbank_{dev}" / f"{cmp[0]}.npy"
+                          ).any(),
+              f"etl: the short clip's fbank on {dev} is not all zeros")
+    cmp_rate = {k: ETL_CMP / s for k, s in cmp_s.items()}
+    print(f"[etl] card vs CPU over {ETL_CMP} clips: max abs "
+          f"{json.dumps(cmp_diff)}; files/s {json.dumps(cmp_rate)}",
+          flush=True)
+    out.update(card_vs_cpu_max_abs=cmp_diff, cmp_files_per_s=cmp_rate)
+
+    # one file's extract-fbank and extract-spec, profiled
+    one = [split["train"][1]]
+    etl_link(one, raw / "all" / "wav", raw / "one" / "wav", ".wav")
+    prof = {}
+    for kind in ("extract-fbank", "extract-spec"):
+        p = profile_call(lambda: etl_cli.main(
+            [kind, str(raw / "one" / "wav"), str(work / f"one_{kind}"),
+             "--device", "cuda"]))
+        prof[kind] = {k: p[k] for k in ("wall_ms", "device_ms",
+                                        "busy_share")}
+    print(f"[etl] one file profiled (host wall, device ms): "
+          f"{json.dumps(prof)}", flush=True)
+    out["one_file"] = prof
+    shutil.rmtree(raw / "all" / "video")
+
+    # -- training from the ETL's trees ------------------------------------
+    pth = work / "av.pth"
+    _, st, res, launches, wall = driver_run(
+        driver_argv(spec_root, work / "ck_av", "--pallas_conv", "on",
+                    "--epochs", "1", "--export_torch", str(pth)),
+        "etl: CREMA-D from the spec tree, B3 on, 1 epoch")
+    expect = 2 * 2 * B3_SITES * ETL_TRAIN // AV_BATCH \
+        + 2 * B3_SITES * ETL_TEST // AV_BATCH
+    check(launches == expect, f"etl: {launches} B3 launches, {expect} "
+          "expected (52 a step, 26 an eval batch)")
+    hist = res["history"]
+    check(len(hist) == 1 and all(np.isfinite(hist[0][k]) for k in
+                                 ("loss", "loss_a", "loss_v", "acc"))
+          and all_finite(st.params.values()) and pth.is_file(),
+          f"etl: CREMA-D history {hist}")
+    del st
+    b3 = launches
+    out["av"] = {"launches": launches, "train_s": hist[0]["train_s"],
+                 "wall_s": hist[0]["wall_s"], "run_s": wall,
+                 "acc": hist[0]["acc"], "loss": hist[0]["loss"]}
+
+    n = family_blocks()["cav"]
+    cav_argv = ["--device", "cuda", "--train", "--dataset", "CREMAD",
+                "--lorb", "large", "--audio_length", str(FAM_AUDIO),
+                "--cav_blocks", "%d,%d" % FAM_CAV_BLOCKS, "--gs_flag",
+                "--batch_size", str(FAM_BATCH), "--compute_dtype", "bfloat16",
+                "--epochs", "1", "--data_root", str(fbank_root),
+                "--ckpt_path", str(work / "ck_cav"), "--num_workers",
+                str(DRIVER_WORKERS), "--no-use_tensorboard"]
+    _, st, res, audit, cav_launches, wall, peak = m3ae_driver_run(
+        cav_argv, "etl: CAV-MAE from the fbank tree, 1 epoch", (n, n), (n, 0))
+    hist = res["history"]
+    check(len(audit.steps) == -(-ETL_TRAIN // FAM_BATCH)
+          and len(audit.evals) == -(-ETL_TEST // FAM_BATCH)
+          and len(hist) == 1 and np.isfinite(hist[0]["loss"])
+          and all_finite(st.params.values()),
+          f"etl: CAV-MAE {len(audit.steps)} steps, history {hist}")
+    del st
+    out["cav"] = {"launches": cav_launches, "train_s": hist[0]["train_s"],
+                  "wall_s": hist[0]["wall_s"], "run_s": wall,
+                  "peak_bytes": peak, "acc": hist[0]["acc"],
+                  "loss": hist[0]["loss"]}
+    shutil.rmtree(work / "ck_av", ignore_errors=True)
+    shutil.rmtree(work / "ck_cav", ignore_errors=True)
+
+    # the parity eval (the driver's eval-only branch) from the exported .pth
+    ev = [a for a in driver_argv(spec_root, pth, "--pallas_conv", "on")
+          if a != "--train"]
+    conv3x3.launches = 0
+    report = parity.main(["--reference", "", *ev])
+    par_launches = conv3x3.launches
+    per_eval = 2 * B3_SITES * -(-ETL_TEST // AV_BATCH)
+    check(par_launches == per_eval,
+          f"etl: parity {par_launches} B3 launches, {per_eval} expected")
+    check(report["reference"] is None
+          and set(report["ours"]) == {"acc", "acc_a", "acc_v"}
+          and report["config"]["ckpt"] == str(pth)
+          and report["ours"]["acc"] == out["av"]["acc"],
+          f"etl: parity's report {report} against the training run's eval "
+          f"of the exported weights (acc {out['av']['acc']})")
+    b3 += par_launches
+    out["parity"] = {"ours": report["ours"], "launches": par_launches}
+    print(f"[etl] CREMA-D train_s {out['av']['train_s']:.4f}, CAV-MAE "
+          f"train_s {out['cav']['train_s']:.4f}; parity ours "
+          f"{json.dumps(report['ours'])}, acc = the training run's eval",
+          flush=True)
+
+    out["fusion"] = fusion_card_vs_cpu()
+    out["launches"] = {"B3": b3, "B1f": cav_launches["B1f"],
+                       "B1b": cav_launches["B1b"]}
+    out["phase_s"] = time.perf_counter() - t
+    print(f"[etl] phase 14: {out['phase_s']:.1f} s, launches "
+          f"{json.dumps(out['launches'])}", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: torch.cuda.is_available() is false")
@@ -3788,6 +4199,11 @@ def main():
         families = phase_families_driver(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "build"))
+    try:
+        etl_phase = phase_etl(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     def main_shape(rs):
         return next(r for r in rs if r["shape"] == [64, 257, 12, 64]
@@ -3835,9 +4251,10 @@ def main():
         "source": "mla_tpu_torch/ops/csrc/conv3x3.cu",
         "replaces": "mla_tpu/ops/conv3x3.py:95",
         # AV serving dispatches + AV training steps, eval, joint, QMF +
-        # the driver's runs (train, eval-only, resume)
+        # the driver's runs (train, eval-only, resume); phase 14's (train
+        # from the ETL's tree, parity from its .pth)
         "launches": av_serving["launches"] + av_training["launches"]
-        + driver["launches"],
+        + driver["launches"] + etl_phase["launches"]["B3"],
         "max_abs_err": conv["max_abs_err"], "ms": conv["ms"],
         "device_ms": conv["device_ms"],
         "plain_ms": conv["plain_ms"], "bound_ms": conv["bound_ms"],
@@ -3890,6 +4307,9 @@ def main():
         kernels[0]["launches"] += r["launches"]["B1f"]
         for k in ("B4", "B5", "B6"):
             q8_total[k] += r["launches"][k]
+    # phase 14: CAV-MAE trained from the ETL's fbank tree
+    kernels[0]["launches"] += etl_phase["launches"]["B1f"]
+    kernels[1]["launches"] += etl_phase["launches"]["B1b"]
     b4 = [r for r in q8_rows if not r["stacked"]]
     b5 = [r for r in q8_rows if r["stacked"]]
     kernels += [
@@ -3975,6 +4395,7 @@ def main():
         "int8_serving": int8, "head_training": head_training,
         "ln_dense_path": ln_path, "driver": driver,
         "m3ae_driver": m3ae_driver, "families_driver": families,
+        "etl": etl_phase,
         "seconds": time.perf_counter() - t_start}, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))

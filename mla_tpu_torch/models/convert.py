@@ -241,9 +241,19 @@ def state_dict_from_jax(params: Mapping, cfg, batch_stats=None
     for fc in ("audio_fc", "visual_fc", "txtual_fc"):
         if fc in params:
             _linear(sd, params[fc], fc)
+    sd.update(fusion_state_dict(params.get("fusion_module", {}),
+                                "fusion_module."))
+    return sd
+
+
+def fusion_state_dict(params: Mapping, prefix: str = ""
+                      ) -> Dict[str, torch.Tensor]:
+    """A flax fusion module's params (any of ``models/fusion.py``'s heads:
+    ``fc_out``, ``fc_x``, ``fc_y``, ``fc``) -> its Linear entries."""
+    sd: Dict[str, torch.Tensor] = {}
     for fc in ("fc_out", "fc_x", "fc_y", "fc"):
-        if fc in params.get("fusion_module", {}):
-            _linear(sd, params["fusion_module"][fc], f"fusion_module.{fc}")
+        if fc in params:
+            _linear(sd, params[fc], prefix + fc)
     return sd
 
 

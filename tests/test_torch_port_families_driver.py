@@ -168,6 +168,10 @@ def _patch(monkeypatch):
     from mla_tpu_torch.models import classifiers
     from mla_tpu_torch.ops import specaug as sa
     from mla_tpu_torch.runtime import driver
+    # imported before the patch: export binds make_classifier by name at
+    # its import, and a first import under the patch would keep the
+    # test's vocabulary for every later test of the process
+    from mla_tpu_torch.runtime import export  # noqa: F401
 
     make, build = classifiers.make_classifier, classifiers.build_classifier
     monkeypatch.setattr(classifiers, "make_classifier",

@@ -1,5 +1,8 @@
 """The port's small modules against the JAX package's, on the CPU: fusion
-heads (mla_tpu_torch/models/fusion.py), test-time fusion
+heads (mla_tpu_torch/models/fusion.py; FiLM and GatedFusion under both
+switches, loaded through ``convert.fusion_state_dict`` with strict=True,
+also in bf16 compute at the port's bf16 tolerance, relative L2 <= 1e-2),
+test-time fusion
 (evals/fusion_eval.py), metrics (evals/metrics.py), the sin-cos tables
 (ops/pos_embed.py) and patchify (ops/image.py). Inputs from numpy with a
 fixed seed; fp32 throughout, atol 1e-5 (one fp32 matmul or softmax summed
@@ -52,6 +55,61 @@ def test_fusion_heads_match_jax(name, n_in):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL,
                                    rtol=0)
+
+
+def _rel_l2(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,switch", [("FiLM", True), ("FiLM", False),
+                                         ("GatedFusion", True),
+                                         ("GatedFusion", False)])
+def test_film_and_gated_match_flax(name, switch, dtype):
+    import torch
+    from mla_tpu_torch.models import fusion
+    from mla_tpu_torch.models.convert import fusion_state_dict
+
+    rng = np.random.default_rng(5)
+    xs = [rng.standard_normal((B, FEAT)).astype(np.float32)
+          for _ in range(2)]
+    kw = {"x_film" if name == "FiLM" else "x_gate": switch}
+    jmod = getattr(jfusion, name)(FEAT, N_CLS, **kw)
+    params = jax.device_get(
+        jmod.init(jax.random.key(1), *map(jnp.asarray, xs))["params"])
+    tmod = getattr(fusion, name)(FEAT, FEAT, N_CLS, **kw)
+    tmod.load_state_dict(fusion_state_dict(params), strict=True)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = jmod.clone(dtype=jdt).apply(
+        {"params": params}, *[jnp.asarray(x, jdt) for x in xs])
+    with torch.no_grad():
+        got = tmod(*[torch.from_numpy(x).to(tdt) for x in xs])
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert g.dtype == tdt and w.dtype == jdt and g.shape == w.shape
+        g, w = g.float().numpy(), np.asarray(w, np.float32)
+        if dtype == "float32":
+            np.testing.assert_allclose(g, w, atol=1e-6, rtol=0)
+        else:
+            assert _rel_l2(g, w) <= 1e-2
+
+
+@pytest.mark.parametrize("name", ["FiLM", "GatedFusion"])
+def test_film_and_gated_init_is_xavier_normal(name):
+    import torch
+    from mla_tpu_torch.models import fusion
+
+    mod = getattr(fusion, name)(512, 512, 100)
+    mod.reset_parameters(torch.Generator().manual_seed(2))
+    lins = [m for m in mod.modules() if isinstance(m, torch.nn.Linear)]
+    assert len(lins) == (2 if name == "FiLM" else 3)
+    for lin in lins:
+        std = (2.0 / (lin.in_features + lin.out_features)) ** 0.5
+        w = lin.weight.detach()
+        assert abs(float(w.std()) / std - 1.0) < 0.03
+        assert abs(float(w.mean())) < 0.05 * std
+        assert not lin.bias.detach().any()
 
 
 def test_torch_default_init_bounds():

@@ -40,6 +40,11 @@ def _imports(path):
 def test_port_imports_no_jax_and_nothing_of_mla_tpu():
     files = _port_files()
     assert len(files) > 15 and all(f.exists() for f in files)
+    # the walk reaches the ETL package and the parity eval
+    names = {str(f.relative_to(ROOT)) for f in files}
+    assert {"mla_tpu_torch/data/etl/cli.py", "mla_tpu_torch/ops/stft.py",
+            "mla_tpu_torch/runtime/parity.py",
+            "mla_tpu_torch/runtime/reference_harness.py"} <= names
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f)
            if name.split(".")[0] in FORBIDDEN]
@@ -63,7 +68,8 @@ def test_resolve_device_never_falls_back(monkeypatch):
 def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     import torch
     from mla_tpu_torch.core.config import MLAConfig, config_from_args
-    from mla_tpu_torch.runtime import cli, driver, export, serve
+    from mla_tpu_torch.data.etl import cli as etl
+    from mla_tpu_torch.runtime import cli, driver, export, parity, serve
 
     # the device knob belongs to the entry points (serve --device; export
     # --device, for int8_a8's calibration forward); the config has none
@@ -84,6 +90,21 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
         cli.main(["--train", "--data_root", str(tmp_path)])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         driver.run(MLAConfig(train=True, data_root=str(tmp_path)))
+    # the ETL CLI's audio subcommands (--device) and the parity eval; the
+    # subcommands that touch no device run without one
+    for cmd in etl.DEVICE_COMMANDS:
+        inputs = 3 if cmd == "preprocess-iemo" else 1
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            etl.main([cmd, *[str(tmp_path)] * inputs, str(tmp_path / "o")])
+    assert not (tmp_path / "o").exists()
+    assert etl.parse_args(["extract-spec", "i", "o", "--device", "cpu"]
+                          ).device == torch.device("cpu")
+    (tmp_path / "all.txt").write_text("a.flv x\nb.flv y\n")
+    etl.main(["gen-txt", str(tmp_path / "all.txt"), str(tmp_path / "my")])
+    assert (tmp_path / "my_train.txt").exists()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        parity.main(["--reference", "", "--ckpt_path",
+                     str(tmp_path / "meta.json")])
 
 
 def test_cpu_tensor_takes_plain_version_cuda_tensor_never(monkeypatch):
